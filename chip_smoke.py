@@ -7,30 +7,48 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. build   — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
-             (sm_90a, in parallel); prints build seconds and ptxas'
-             registers / stack / spills.
-2. comb    — the comb kernel against its plain-torch version at B = 16384
-             and 2048 lanes signed by the 64 replica keys, with a seeded
-             rejection matrix (corrupted r, r = 0, s >= n, wrong-key kidx,
-             zero-padded lanes): both masks equal bit for bit and equal
-             OpenSSL's verdicts.
-3. generic — the same for the generic kernel, on keys outside the
-             registry plus off-curve keys.
-4. e2e     — the main path through the user entry points (Keyring ->
-             P256CryptoProvider -> testing.App / Consensus): the n=64
-             deployment (request batch 500, pipeline depth 16, group-commit
-             WAL, one shared dedupe coalescer) commits a 32-decision burst
-             on the comb kernel (cell A); then a second membership of 64
-             new keys commits the same burst on the same long-lived engine,
-             whose 128-key comb registry earlier memberships have filled,
-             so its waves take the generic kernel (cell B).  Each cell's
-             launch counters are zeroed just before its run and read just
-             after; a cell fails if it launched the other cell's kernel.
-5. kernels — one line with both kernels: launches in their cell,
-             agreement, time per launch at every rung the cell used (CUDA
-             events), at its main rung (most lanes) and at 16384, the plain
-             version's time, and the bound.
+1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
+                (four, sm_90a, one nvcc each, all started together); prints
+                build seconds and ptxas' registers / stack / spills.
+2. comb       — the P-256 comb kernel against its plain-torch version at
+                B = 16384 and 2048 lanes signed by the 64 replica keys, with
+                a seeded rejection matrix (corrupted r, r = 0, s >= n,
+                wrong-key kidx, zero-padded lanes): both masks equal bit for
+                bit and equal OpenSSL's verdicts.
+3. generic    — the same for the P-256 generic kernel, on keys outside the
+                registry plus off-curve keys.
+4. ed_comb    — the Ed25519 comb kernel against its plain version at B =
+                16384 and 2048 on the 64 replica keys (and one more, so the
+                stack has zero-padded slots), with a seeded rejection matrix
+                (corrupted S, tampered message, S >= L, an undecodable R, a
+                valid signature claimed under the wrong kidx, ok = 1 on a
+                zero-padded stack slot, zero-padded lanes): both masks equal
+                bit for bit, equal ``ed25519.verify_item`` on every
+                rejection lane and a seeded sample of valid ones, and equal
+                OpenSSL's verdicts on every lane where OpenSSL applies (all
+                but the padded slot and padded lanes, which have no key).
+                Non-canonical encodings and small-order keys, where
+                libraries may differ, are left out.
+5. ed_generic — the same for the generic Ed25519 kernel, on keys outside
+                the registry plus undecodable public keys.
+6. e2e        — the main path through the user entry points (Keyring ->
+                P256CryptoProvider / Ed25519CryptoProvider -> testing.App /
+                Consensus): the n=64 deployment (request batch 500,
+                pipeline depth 16, group-commit WAL, one shared dedupe
+                coalescer) commits a 32-decision burst.  P-256: on the comb
+                kernel (cell A); then a second membership of 64 new keys on
+                the same long-lived engine, whose 128-key comb registry
+                earlier memberships have filled, so its waves take the
+                generic kernel (cell B).  Ed25519 (BASELINE configs [3]):
+                the same two cells on a fresh
+                ``TorchVerifyEngine(scheme=ed25519)`` (cells C and D).  All
+                four launch counters are zeroed just before each cell's run
+                and read just after; a cell fails if any kernel but its own
+                launched.
+7. kernels    — one line with the four kernels: launches in their cell,
+                agreement, time per launch at every rung the cell used
+                (CUDA events), at its main rung (most lanes) and at 16384,
+                the plain version's time, and the bound.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -52,14 +70,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: int32 multiply-adds a card issues per SM per clock (Hopper: 64 a clock,
 #: half the fp32 rate); a 32 x 32 -> 64-bit product counts as two
 IMAD_PER_SM_CLOCK = 64
-#: 32-bit multiply-adds one 8-word Montgomery operation needs, by modulus
-#: and kind (the keys of the kernels' MONT_OPS_PER_LANE): a*b is 64 wide
+#: 32-bit multiply-adds one 8-word modular product needs, by modulus and
+#: kind (the keys of each kernel module's mont_ops): a*b is 64 wide
 #: products, a*a 36 (each cross product once, doubled by a shift).
-#: Reduction mod n adds, per word, q = t0 * n0inv (one) and q*N (8 wide
-#: products); mod p it needs no multiply, since n0inv = 1 and the words of
-#: p are 0, 1 and 2^32 - 1, so q*p is shifts and subtractions.
+#: Montgomery reduction mod n adds, per word, q = t0 * n0inv (one) and q*N
+#: (8 wide products); mod p it needs no multiply, since n0inv = 1 and the
+#: words of p are 0, 1 and 2^32 - 1, so q*p is shifts and subtractions.
+#: Mod the Ed25519 prime 2^255 - 19 the reduction is a fold, the high
+#: eight words times 38 into the low eight: 8 wide products.
 IMADS = {"p_mul": 2 * 64, "p_sqr": 2 * 36,
-         "n_mul": 2 * 64 + 8 * (1 + 2 * 8), "n_sqr": 2 * 36 + 8 * (1 + 2 * 8)}
+         "n_mul": 2 * 64 + 8 * (1 + 2 * 8), "n_sqr": 2 * 36 + 8 * (1 + 2 * 8),
+         "ed_mul": 2 * 64 + 2 * 8, "ed_sqr": 2 * 36 + 2 * 8}
 #: HBM3 bandwidth of an H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
@@ -149,14 +170,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def imads_per_lane(mont_ops: dict) -> int:
+def imads(mont_ops: dict) -> int:
     return sum(IMADS[kind] * count for kind, count in mont_ops.items())
 
 
-def bound(lanes: int, mont_ops: dict, bytes_moved: int,
+def bound(mont_ops: dict, bytes_moved: int,
           clock_hz: float, sms: int) -> tuple[float, str]:
-    ops_s = lanes * imads_per_lane(mont_ops) / (
-        sms * IMAD_PER_SM_CLOCK * clock_hz)
+    ops_s = imads(mont_ops) / (sms * IMAD_PER_SM_CLOCK * clock_hz)
     mem_s = bytes_moved / HBM_BYTES_PER_S
     return (1e3 * max(ops_s, mem_s),
             "operations" if ops_s >= mem_s else "bytes")
@@ -184,7 +204,8 @@ def phase_build():
 
 
 def kernel_phase(name, run_kernel, run_plain, expect, make_args):
-    """Kernel vs plain vs expected on one batch; returns the record."""
+    """Kernel vs plain vs the expected verdicts on one batch; returns the
+    record."""
     import torch
 
     args = make_args()
@@ -201,7 +222,8 @@ def kernel_phase(name, run_kernel, run_plain, expect, make_args):
         fail(f"{name}: kernel and plain masks differ at lanes {bad[:16]}")
     if got_l != [int(v) for v in expect]:
         bad = [i for i, (a, b) in enumerate(zip(got_l, expect)) if a != b]
-        fail(f"{name}: mask differs from OpenSSL at lanes {bad[:16]}")
+        fail(f"{name}: mask differs from the expected verdicts at lanes "
+             f"{bad[:16]}")
     return {"lanes": len(got_l), "accepted": sum(got_l),
             "rejected": len(got_l) - sum(got_l), "max_abs_err": diff,
             "plain_ms": round(plain_ms, 3), "args": args}
@@ -274,12 +296,191 @@ def phase_generic(rng):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Ed25519 batches
+# ---------------------------------------------------------------------------
+
+
+def openssl_ed_verify(msg, sig, pub) -> bool:
+    """Independent Ed25519 verdict from OpenSSL (the cryptography wheel)."""
+    from cryptography.exceptions import InvalidSignature
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PublicKey,
+    )
+
+    try:
+        Ed25519PublicKey.from_public_bytes(pub).verify(sig, msg)
+        return True
+    except (InvalidSignature, ValueError):
+        return False
+
+
+def undecodable_r(rng, ed):
+    """A 32-byte encoding with y < p and no x (no square root): a canonical
+    encoding that every library rejects."""
+    while True:
+        y = int.from_bytes(rng.bytes(32), "little") % ed.P
+        enc = y.to_bytes(32, "little")
+        if ed.decompress(enc) is None:
+            return enc
+
+
+def make_ed_batch(bsz: int, keys, rng, ed, tag: str, kinds: int):
+    """``bsz - 64`` Ed25519 votes (lane i: key i % len(keys) on message
+    i // len(keys)) and 64 trailing zero lanes.  40 seeded lanes get one of
+    ``kinds`` faults: 0 corrupted S, 1 tampered message, 2 S + L, 3 an
+    undecodable R, 4 the signature claimed under the next key, 5 (the
+    comb batch only) a claim on a zero-padded stack slot.  Returns (items,
+    claimed key per lane, faulted lanes by kind, number of zero lanes)."""
+    nk = len(keys)
+    npad = 64
+    real = bsz - npad
+    items, claim = [], []
+    for i in range(real):
+        priv, pub = keys[i % nk]
+        msg = f"{tag}-{i // nk}".encode()
+        items.append(ed.make_item(msg, ed.sign_raw(priv, msg), pub))
+        claim.append(i % nk)
+    faults: dict = {}
+    for j, lane in enumerate(rng.choice(real, size=40, replace=False)):
+        lane, kind = int(lane), j % kinds
+        msg, sig, pub = items[lane]
+        s_int = int.from_bytes(sig[32:], "little")
+        if kind == 0:
+            sig = sig[:32] + ((s_int + 1) % ed.L).to_bytes(32, "little")
+        elif kind == 1:
+            msg = msg + b"-tampered"
+        elif kind == 2:
+            sig = sig[:32] + (s_int + ed.L).to_bytes(32, "little")
+        elif kind == 3:
+            sig = undecodable_r(rng, ed) + sig[32:]
+        elif kind == 4:
+            claim[lane] = (claim[lane] + 1) % nk
+        items[lane] = (msg, sig, pub)
+        faults.setdefault(kind, []).append(lane)
+    return items, claim, faults, npad
+
+
+def check_ed_expectations(name, items, pubs, truth, no_key, rng, ed):
+    """The verdicts a batch must get, held to ``ed25519.verify_item`` on
+    every faulted lane and a seeded sample of valid ones, and to OpenSSL on
+    every lane; lanes in ``no_key`` (a claim on a padded stack slot) have no
+    key to hold them to.  Returns the number of verify_item lanes."""
+    faulted = [i for i, t in enumerate(truth[:len(items)])
+               if not t and i not in no_key]
+    valid = [i for i, t in enumerate(truth[:len(items)]) if t]
+    sample = faulted + [int(i) for i in
+                        rng.choice(valid, min(24, len(valid)), replace=False)]
+    for i in sample:
+        m, sig, _ = items[i]
+        if ed.verify_item((m, sig, pubs[i])) != truth[i]:
+            fail(f"{name}: verify_item disagrees with lane {i}'s fault")
+    for i in range(len(items)):
+        m, sig, _ = items[i]
+        if i not in no_key and openssl_ed_verify(m, sig, pubs[i]) != truth[i]:
+            fail(f"{name}: OpenSSL disagrees with lane {i}'s fault")
+    return len(sample)
+
+
+def phase_ed_comb(rng, keys):
+    import numpy as np
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    # the 64 replica keys and one more: the stack pads to 128 slots, so
+    # slots 65..127 are zero and a claim on them must fail
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    for _, pub in keys + [ed.keygen(b"smoke-ed-extra")]:
+        reg.register(pub)
+    qtab_np = reg.stacked()
+    dev = torch.device("cuda")
+    btab = torch.from_numpy(ced.b_table()).to(dev)
+    qtab = torch.from_numpy(qtab_np).to(dev)
+    records = {}
+    for bsz in (16384, 2048):
+        items, claim, faults, npad = make_ed_batch(
+            bsz, keys, rng, ed, f"edc{bsz}", kinds=6)
+        s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+        kidx[:] = claim
+        for lane in faults.get(5, []):
+            kidx[lane] = len(reg) + lane % (qtab_np.shape[0] - len(reg))
+            ok[lane] = 1
+        z = np.zeros((npad, 32), np.uint8)
+        s8, h8, rx8, ry8 = (np.concatenate([a, z]) for a in (s8, h8, rx8, ry8))
+        zl = np.zeros(npad, np.int32)
+        ok, kidx = np.concatenate([ok, zl]), np.concatenate([kidx, zl])
+        faulted = {i for lanes in faults.values() for i in lanes}
+        truth = [i not in faulted for i in range(len(items))] + [False] * npad
+        pubs = [keys[k][1] for k in claim]
+        n_vi = check_ed_expectations(f"ed_comb B={bsz}", items, pubs, truth,
+                                     set(faults.get(5, [])), rng, ed)
+
+        def make_args():
+            return [torch.from_numpy(a).to(dev)
+                    for a in (s8, h8, rx8, ry8, ok, kidx)] + [btab, qtab]
+
+        rec = kernel_phase(f"ed_comb B={bsz}", ced.eddsa_verify_comb,
+                           ced.eddsa_verify_comb_plain, truth, make_args)
+        records[bsz] = rec
+        emit({"phase": "ed_comb", "ok": True, "B": bsz,
+              "stack_slots": int(qtab_np.shape[0]), "keys": len(reg),
+              "faults": {str(k): len(v) for k, v in sorted(faults.items())},
+              "verify_item_lanes": n_vi,
+              **{k: v for k, v in rec.items() if k != "args"}})
+    return records
+
+
+def phase_ed_generic(rng):
+    import numpy as np
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    keys = [ed.keygen(b"smoke-ed-generic-%d" % i) for i in range(64)]
+    dev = torch.device("cuda")
+    records = {}
+    for bsz in (16384, 2048):
+        items, claim, faults, npad = make_ed_batch(
+            bsz, keys, rng, ed, f"edg{bsz}", kinds=5)
+        # the claimed key is the key presented; 8 more lanes present a key
+        # that does not decode
+        items = [(m, sig, keys[k][1]) for (m, sig, _), k in zip(items, claim)]
+        bad_keys = [int(i) for i in rng.choice(len(items), 8, replace=False)]
+        for lane in bad_keys:
+            m, sig, _ = items[lane]
+            items[lane] = (m, sig, undecodable_r(rng, ed))
+        arrays = [np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
+                  for a in ed.verify_inputs(items)]
+        faulted = {i for lanes in faults.values() for i in lanes} | set(bad_keys)
+        truth = [i not in faulted for i in range(len(items))] + [False] * npad
+        pubs = [pub for _, _, pub in items]
+        n_vi = check_ed_expectations(f"ed_generic B={bsz}", items, pubs, truth,
+                                     set(), rng, ed)
+
+        def make_args():
+            return [torch.from_numpy(a).to(dev) for a in arrays]
+
+        rec = kernel_phase(f"ed_generic B={bsz}", cgd.eddsa_verify,
+                           cgd.eddsa_verify_plain, truth, make_args)
+        records[bsz] = rec
+        emit({"phase": "ed_generic", "ok": True, "B": bsz,
+              "faults": {str(k): len(v) for k, v in sorted(faults.items())},
+              "undecodable_keys": len(bad_keys), "verify_item_lanes": n_vi,
+              **{k: v for k, v in rec.items() if k != "args"}})
+    return records
+
+
 async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
                       pipeline: int, wal_root: str, tag: str):
     """One n-replica deployment over a shared engine: commit ``decisions``
     x ``batch`` requests; returns the run's measurements."""
+    from smartbft_tpu_torch.crypto import ed25519
     from smartbft_tpu_torch.crypto.provider import (
         AsyncBatchCoalescer,
+        Ed25519CryptoProvider,
         P256CryptoProvider,
     )
     from smartbft_tpu_torch.testing.app import (
@@ -294,6 +495,8 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
 
     n = len(node_ids)
     requests = decisions * batch
+    provider = (Ed25519CryptoProvider if engine.scheme is ed25519
+                else P256CryptoProvider)
 
     def cfg(i):
         return dataclasses.replace(
@@ -323,8 +526,7 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
     apps = [
         App(i, network, shared, scheduler,
             wal_dir=os.path.join(wal_root, f"{tag}-wal-{i}"), config=cfg(i),
-            crypto=P256CryptoProvider(rings[i], engine=engine,
-                                      coalescer=coalescer))
+            crypto=provider(rings[i], engine=engine, coalescer=coalescer))
         for i in node_ids
     ]
 
@@ -367,17 +569,26 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
     }
 
 
-def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
-               wal_root, tag):
-    """One cell of the main path.  The launch counters and the engine's
-    stats are zeroed just before the run and read just after it; the cell
-    must commit, keep every ledger equal, stay off the host, and launch
-    ``kernel`` ("comb" or "generic") and no other."""
+def launch_counters() -> dict:
+    """The four kernels' launch counters, by the name each cell uses."""
     from smartbft_tpu_torch.crypto import cuda_comb as cc
     from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+
+    return {"comb": cc.LAUNCHES, "generic": ce.LAUNCHES,
+            "ed_comb": ced.LAUNCHES, "ed_generic": cgd.LAUNCHES}
+
+
+def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
+               wal_root, tag):
+    """One cell of the main path.  All four launch counters and the
+    engine's stats are zeroed just before the run and read just after it;
+    the cell must commit, keep every ledger equal, stay off the host, and
+    launch ``kernel`` and no other."""
     from smartbft_tpu_torch.crypto.provider import VerifyStats
 
-    counters = {"comb": cc.LAUNCHES, "generic": ce.LAUNCHES}
+    counters = launch_counters()
     engine.stats = VerifyStats()
     engine.rung_launches.clear()
     engine.route_launches.update(comb=0, generic=0)
@@ -397,17 +608,18 @@ def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
     br = run.pop("breaker")
     if br["opens"] or br["host_fallback_batches"] or br["launch_failures"]:
         fail(f"e2e {tag}: verify plane degraded: {br}")
-    other = "generic" if kernel == "comb" else "comb"
     if counts[kernel][0] == 0:
         fail(f"e2e {tag}: the {kernel} kernel was never launched")
-    if counts[other][0]:
-        fail(f"e2e {tag}: the {other} kernel ran {counts[other][0]} times "
-             f"in the {kernel} cell")
+    others = {k: v[0] for k, v in counts.items() if k != kernel and v[0]}
+    if others:
+        fail(f"e2e {tag}: other kernels ran in the {kernel} cell: {others}")
     lanes = counts[kernel][1]
     if lanes != stats.slots_used or lanes < stats.sigs_verified:
         fail(f"e2e {tag}: kernel lanes {lanes} do not cover the engine's "
              f"{stats.sigs_verified} signatures in {stats.slots_used} slots")
-    if engine.route_launches != {k: v[0] for k, v in counts.items()}:
+    route = "generic" if kernel.endswith("generic") else "comb"
+    if engine.route_launches != {"comb": 0, "generic": 0,
+                                 route: counts[kernel][0]}:
         fail(f"e2e {tag}: engine routes {engine.route_launches} disagree "
              f"with kernel counters {counts}")
     # the main-path rung carries the most lanes; a tie goes to the larger
@@ -425,68 +637,90 @@ def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
     return run
 
 
-def phase_e2e(wal_root, device="cuda", n=64, batch=500, pipeline=16,
+def phase_e2e(wal_root, scheme, n=64, batch=500, pipeline=16,
               decisions=32):
+    """Two cells of one scheme on one long-lived engine: its comb kernel
+    for the first membership, then its generic kernel for a second one
+    after earlier memberships filled the 128-key registry."""
     from smartbft_tpu_torch.crypto import cuda_comb as cc
-    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto import ed25519
     from smartbft_tpu_torch.crypto.provider import Keyring, TorchVerifyEngine
 
-    ids_a = list(range(1, n + 1))
-    ids_b = list(range(n + 1, 2 * n + 1))
-    rings_a = Keyring.generate(ids_a, seed=b"bench-tput")
-    rings_b = Keyring.generate(ids_b, seed=b"smoke-membership-b")
-    engine = TorchVerifyEngine(device=device)
-    engine.prewarm_keys(rings_a[ids_a[0]].public_keys.values())
-    ring = rings_a[ids_a[0]]
-    warm = p256.make_item(b"warm", p256.sign_raw(ring.private_key, b"warm"),
-                          ring.public_keys[ids_a[0]])
+    ed = scheme is ed25519
+    kernels = ("ed_comb", "ed_generic") if ed else ("comb", "generic")
+    tags = ("c", "d") if ed else ("a", "b")
+    ids_1 = list(range(1, n + 1))
+    ids_2 = list(range(n + 1, 2 * n + 1))
+    rings_1 = Keyring.generate(ids_1, seed=b"bench-tput", scheme=scheme)
+    rings_2 = Keyring.generate(ids_2, seed=b"smoke-membership-b",
+                               scheme=scheme)
+    engine = TorchVerifyEngine(device="cuda", scheme=scheme)
+    engine.prewarm_keys(rings_1[ids_1[0]].public_keys.values())
+    ring = rings_1[ids_1[0]]
+    warm = scheme.make_item(b"warm", scheme.sign_raw(ring.private_key, b"warm"),
+                            ring.public_keys[ids_1[0]])
     t0 = time.perf_counter()
     engine.prewarm_shapes(warm)
     prewarm_s = time.perf_counter() - t0
-    run_a = drive_cell(engine, "comb", rings_a, ids_a, decisions, batch,
-                       pipeline, wal_root, "a")
+    run_1 = drive_cell(engine, kernels[0], rings_1, ids_1, decisions, batch,
+                       pipeline, wal_root, tags[0])
     # the same long-lived engine has since seen other memberships: keys of
     # earlier configurations fill its comb registry (128 keys), so the
     # second membership's keys overflow it and its waves run the generic
-    # kernel.  The fill is set-up: registered and uploaded before cell B.
+    # kernel.  The fill is set-up: registered and uploaded before the cell.
     room = cc.CombKeyRegistry().cap - n
-    engine.prewarm_keys(p256.keygen(b"smoke-earlier-member-%d" % i)[1]
+    engine.prewarm_keys(scheme.keygen(b"smoke-earlier-member-%d" % i)[1]
                         for i in range(room))
     engine.verify([warm])
-    run_b = drive_cell(engine, "generic", rings_b, ids_b, decisions, batch,
-                       pipeline, wal_root, "b")
+    run_2 = drive_cell(engine, kernels[1], rings_2, ids_2, decisions, batch,
+                       pipeline, wal_root, tags[1])
+    name = "ed25519" if ed else "p256"
     emit({
-        "phase": "e2e", "ok": True, "prewarm_s": round(prewarm_s, 2),
+        "phase": "e2e", "ok": True, "scheme": name,
+        "prewarm_s": round(prewarm_s, 2),
         "deployment": {"nodes": n, "request_batch_max_count": batch,
                        "pipeline_depth": pipeline, "wal_group_commit": True,
-                       "shared_dedupe_coalescer": True},
-        "a_comb": run_a, "b_registry_full": run_b,
+                       "shared_dedupe_coalescer": True, "scheme": name},
+        f"{tags[0]}_comb": run_1, f"{tags[1]}_registry_full": run_2,
     })
-    return {"comb": run_a, "generic": run_b}
+    return {kernels[0]: run_1, kernels[1]: run_2}
 
 
-def phase_kernels(comb_recs, gen_recs, cells, clock_hz, sms):
+def phase_kernels(recs, cells, clock_hz, sms):
+    """The kernels line: per kernel, time at every rung its cell used, at
+    the main rung and at 16384 (CUDA events), the plain version's time and
+    the bound.  ``recs``: the kernel phases' records by kernel name;
+    ``cells``: the e2e cells by kernel name."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
     from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
 
     rows = []
+    # name, source, TPU kernel replaced, module (its mont_ops counts the
+    # operations a batch needs), wrapper, plain version, bytes a lane moves
+    # (inputs read once, the mask written once), cell
     specs = (
         ("comb_verify", "cuda_comb.cu", "smartbft_tpu/crypto/pallas_comb.py:333",
-         cc, comb_recs, cc.ecdsa_verify_comb, cc.ecdsa_verify_comb_plain,
-         104, "comb"),
+         cc, cc.ecdsa_verify_comb, cc.ecdsa_verify_comb_plain, 104, "comb"),
         ("ecdsa_verify", "cuda_ecdsa.cu", "smartbft_tpu/crypto/pallas_ecdsa.py:653",
-         ce, gen_recs, ce.ecdsa_verify, ce.ecdsa_verify_plain, 164,
-         "generic"),
+         ce, ce.ecdsa_verify, ce.ecdsa_verify_plain, 164, "generic"),
+        ("ed_comb_verify", "cuda_ed25519.cu",
+         "smartbft_tpu/crypto/pallas_ed25519.py:263", ced,
+         ced.eddsa_verify_comb, ced.eddsa_verify_comb_plain, 140, "ed_comb"),
+        ("eddsa_verify", "cuda_eddsa.cu", "smartbft_tpu/crypto/ed25519.py:187",
+         cgd, cgd.eddsa_verify, cgd.eddsa_verify_plain, 200, "ed_generic"),
     )
-    for name, src, replaces, mod, recs, kern, plain, lane_bytes, key in specs:
-        cell = cells[key]
+    for name, src, replaces, mod, kern, plain, lane_bytes, key in specs:
+        cell, rec = cells[key], recs[key]
         rung = cell["main_rung"]
-        args16 = recs[16384]["args"]
+        top = max(rec)  # 16384 lanes, the top rung
+        args16 = rec[top]["args"]
 
         def lanes(b):
-            return [a[:b] if a.dim() and a.shape[0] == 16384
+            return [a[:b] if a.dim() and a.shape[0] == top
                     and a.dtype != torch.uint32 else a for a in args16]
 
         args_r = lanes(rung)
@@ -505,18 +739,19 @@ def phase_kernels(comb_recs, gen_recs, cells, clock_hz, sms):
             fail(f"{name}: kernel and plain masks differ at rung {rung}")
         table_bytes = sum(a.numel() * a.element_size() for a in args_r
                           if a.dtype == torch.uint32)
-        b_rung, by = bound(rung, mod.MONT_OPS_PER_LANE,
-                           rung * lane_bytes + table_bytes, clock_hz, sms)
-        b_16k, _ = bound(16384, mod.MONT_OPS_PER_LANE,
-                         16384 * lane_bytes + table_bytes, clock_hz, sms)
+        ops_r, ops_16k = mod.mont_ops(*args_r), mod.mont_ops(*args16)
+        b_rung, by = bound(ops_r, rung * lane_bytes + table_bytes,
+                           clock_hz, sms)
+        b_16k, _ = bound(ops_16k, top * lane_bytes + table_bytes,
+                         clock_hz, sms)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"smartbft_tpu_torch/csrc/{src}",
             "replaces": replaces,
             "launches": cell["kernel_launches"][key],
             "lanes": cell["kernel_lanes"][key],
-            "max_abs_err": max(recs[b]["max_abs_err"] for b in recs),
-            "agree_lanes": sum(recs[b]["lanes"] for b in recs),
+            "max_abs_err": max(rec[b]["max_abs_err"] for b in rec),
+            "agree_lanes": sum(rec[b]["lanes"] for b in rec),
             "rung": rung,
             "ms": ms_rung,
             "plain_ms": round(plain_ms_rung, 3),
@@ -524,13 +759,13 @@ def phase_kernels(comb_recs, gen_recs, cells, clock_hz, sms):
             "bound_by": by,
             "library_ms": None,
             "ms_16384": round(ms_16k, 4),
-            "plain_ms_16384": recs[16384]["plain_ms"],
+            "plain_ms_16384": rec[top]["plain_ms"],
             "bound_ms_16384": round(b_16k, 4),
             "launches_per_decision": cell["launches_per_decision"],
             "rung_launches": cell["rung_launches"],
             "ms_by_rung": ms_by_rung,
-            "mont_ops_per_lane": mod.MONT_OPS_PER_LANE,
-            "imads_per_lane": imads_per_lane(mod.MONT_OPS_PER_LANE),
+            "mont_ops": ops_r, "mont_ops_16384": ops_16k,
+            "imads": imads(ops_r), "imads_16384": imads(ops_16k),
         })
     return rows
 
@@ -564,17 +799,36 @@ def main() -> int:
     wal_root = os.path.join(HERE, "smartbft_tpu_torch", "_build", "chip_smoke")
     shutil.rmtree(wal_root, ignore_errors=True)
     os.makedirs(wal_root)
+    from smartbft_tpu_torch.crypto import ed25519, p256
+
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    ids = list(range(1, 65))
     try:
-        phase_build()
-        rings = Keyring.generate(list(range(1, 65)), seed=b"bench-tput")
-        keys = [(rings[i].private_key, rings[i].public_keys[i])
-                for i in range(1, 65)]
-        comb_recs = phase_comb(rng, keys)
-        gen_recs = phase_generic(rng)
-        cells = phase_e2e(wal_root)
-        rows = phase_kernels(comb_recs, gen_recs, cells, clock_hz, sms)
+        timed("build", phase_build)
+        rings = Keyring.generate(ids, seed=b"bench-tput")
+        keys = [(rings[i].private_key, rings[i].public_keys[i]) for i in ids]
+        ed_rings = Keyring.generate(ids, seed=b"bench-tput", scheme=ed25519)
+        ed_keys = [(ed_rings[i].private_key, ed_rings[i].public_keys[i])
+                   for i in ids]
+        recs = {"comb": timed("comb", phase_comb, rng, keys),
+                "generic": timed("generic", phase_generic, rng),
+                "ed_comb": timed("ed_comb", phase_ed_comb, rng, ed_keys),
+                "ed_generic": timed("ed_generic", phase_ed_generic, rng)}
+        cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
+                 **timed("e2e_ed25519", phase_e2e, wal_root, ed25519)}
+        rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

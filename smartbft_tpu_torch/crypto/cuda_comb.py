@@ -39,21 +39,19 @@ from .. import csrc
 from . import p256
 from .bignum import bytes_to_limbs, words_to_limbs
 from .cuda_ecdsa import (
-    ADD_MUL,
-    DBL_MUL,
-    DBL_SQR,
-    FINAL_MUL,
-    N_MUL,
-    N_SQR,
+    N_OPS,
     _bits,
     _check_bytes,
     as_tensor,
     curve,
+    final_ops,
     point_add,
     point_double,
+    scalars_needed,
     verify_final,
     verify_scalars,
 )
+from .opcount import WEIERSTRASS, comb_walk, lane_array, lane_bytes, walk_ops
 from .p256 import B as CURVE_B, FP, GX, GY, P
 
 #: comb teeth (bits per table index) and stride (scan iterations)
@@ -242,13 +240,21 @@ def ecdsa_verify_comb(e, r, s, kidx, gtab, qtab) -> torch.Tensor:
     return ecdsa_verify_comb_plain(*args)
 
 
-#: Montgomery operations of one lane by modulus and kind: the scalar work
-#: mod n, then 32 x (a doubling + two additions) and the final comparison
-MONT_OPS_PER_LANE = {
-    "n_mul": N_MUL, "n_sqr": N_SQR,
-    "p_mul": STRIDE * (DBL_MUL + 2 * ADD_MUL) + FINAL_MUL,
-    "p_sqr": STRIDE * DBL_SQR,
-}
+def mont_ops(e, r, s, kidx, gtab, qtab) -> dict:
+    """Products and squarings by modulus the batch needs (:mod:`.opcount`).
+    A lane failing its range checks or with a key index outside the stack
+    needs none.  Any other needs the scalar work (:data:`~.cuda_ecdsa.N_OPS`),
+    the comb walk over affine table entries and the comparison."""
+    ok, u1, u2 = scalars_needed(e, r, s)
+    kidx = lane_array(kidx)
+    live = ok & (kidx >= 0) & (kidx < qtab.shape[0])
+    d1, d2 = (comb_digits(bytes_to_limbs(torch.from_numpy(
+        lane_bytes(u)))).numpy() for u in (u1, u2))
+    mul, sqr, acc = walk_ops(comb_walk(d1, d2), len(kidx), WEIERSTRASS)
+    mul += final_ops(acc, r)
+    n = int(live.sum())
+    return {"n_mul": n * N_OPS["n_mul"], "n_sqr": n * N_OPS["n_sqr"],
+            "p_mul": int((live * mul).sum()), "p_sqr": int((live * sqr).sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +278,20 @@ def _p256_validate(pub):
 class CombKeyRegistry:
     """pub -> table index; tables built once per key, stacked and padded.
 
-    The stack is padded to a power-of-two key count so the device copy is
-    rebuilt at most log2(cap) times as membership grows.  Padding tables
-    are zero, so a reference to a padded index adds the all-zero point and
-    fails the verify, never accepts."""
+    Scheme-agnostic: ``validate``/``build`` default to the P-256 curve
+    check and comb builder; :mod:`.cuda_ed25519` gives the Edwards ones.
+    An entry is 3 x 8 words for either curve ((X, Y, Z) for P-256, (X, Y,
+    T) for Ed25519).  The stack is padded
+    to a power-of-two key count so the device copy is rebuilt at most
+    log2(cap) times as membership grows.  Padding tables are zero, so a
+    reference to a padded index adds the all-zero point and fails the
+    verify, never accepts."""
 
-    def __init__(self, cap: int = 128):
+    def __init__(self, cap: int = 128, validate=None, build=None):
         self.cap = cap
+        #: raises ValueError for a key the scheme cannot register
+        self.validate = validate if validate is not None else _p256_validate
+        self._build = build if build is not None else build_table
         self._index: dict = {}
         self._tables: list[np.ndarray] = []
         self._stack: np.ndarray | None = None
@@ -295,10 +308,10 @@ class CombKeyRegistry:
             return idx
         if len(self._tables) >= self.cap:
             raise CombRegistryFull(f"comb key registry full ({self.cap})")
-        _p256_validate(pub)
+        self.validate(pub)
         idx = len(self._tables)
         self._index[pub] = idx
-        self._tables.append(build_table(pub))
+        self._tables.append(self._build(pub))
         self._stack = None
         return idx
 
@@ -324,11 +337,13 @@ class CombVerifier:
 
     ``verify(items, pad_to)`` returns a (len(items),) mask tensor, or None
     when any item's key is unregistrable (the caller routes the chunk to
-    the generic kernel)."""
+    the generic kernel).  The prewarm / device-table caching / pad-and-
+    launch scaffolding is scheme-agnostic; a scheme overrides the four
+    ``_...`` hooks (:class:`.cuda_ed25519.Ed25519CombVerifier`)."""
 
     def __init__(self, device, cap: int = 128):
         self.device = torch.device(device)
-        self.registry = CombKeyRegistry(cap=cap)
+        self.registry = self._make_registry(cap)
         self._pending_prewarm: list = []
         self._dev_version: int = -1
         self._dev_gtab = None
@@ -340,6 +355,26 @@ class CombVerifier:
         self._reg_lock = threading.RLock()
         self._warned_full = False
 
+    # -- scheme hooks (P-256 defaults) --------------------------------------
+
+    def _make_registry(self, cap: int) -> CombKeyRegistry:
+        return CombKeyRegistry(cap=cap)
+
+    def _base_table(self) -> np.ndarray:
+        return g_table()
+
+    def _pack(self, items):
+        """items -> ([(B, 32) uint8 arrays...], (B,) int32 ok or None,
+        (B,) int32 kidx)."""
+        e8, r8, s8, kidx = pack_items(items, self.registry)
+        return [e8, r8, s8], None, kidx
+
+    def _launch(self, arrays, ok, kidx, gtab, qtab):
+        """One launch on the device tensors; ``ok`` is None for P-256."""
+        return ecdsa_verify_comb(*arrays, kidx, gtab, qtab)
+
+    # -- shared scaffolding --------------------------------------------------
+
     def prewarm_keys(self, pubs) -> None:
         """Record a known key set (e.g. the whole keyring) to register
         before the first verify.  Validation is EAGER (an invalid key raises
@@ -348,7 +383,7 @@ class CombVerifier:
         and CombRegistryFull reports the overflow."""
         pubs = list(pubs)
         for pub in pubs:
-            _p256_validate(pub)
+            self.registry.validate(pub)
         with self._reg_lock:
             known = set(self.registry._index) | set(self._pending_prewarm)
             room = self.registry.cap - len(known)
@@ -383,7 +418,8 @@ class CombVerifier:
         """(gtab, qtab) on the device, re-uploaded when the registry grew."""
         version = len(self.registry)
         if version != self._dev_version:
-            self._dev_gtab = torch.from_numpy(g_table()).to(self.device)
+            self._dev_gtab = torch.from_numpy(
+                self._base_table()).to(self.device)
             self._dev_qtab = torch.from_numpy(
                 self.registry.stacked()).to(self.device)
             self._dev_version = version
@@ -411,12 +447,22 @@ class CombVerifier:
             except ValueError:
                 return None  # invalid key: generic kernel
             gtab, qtab = self.device_tables()
-        # every key is registered now: _pack's register calls are dict hits
-        e8, r8, s8, kidx = pack_items(items, self.registry)
+        # every key is registered now: _pack's register calls are dict hits,
+        # no shared-state mutation outside the lock
+        arrays, ok, kidx = self._pack(items)
         n = len(items)
         if pad_to > n:
             z = np.zeros((pad_to - n, 32), np.uint8)
-            e8, r8, s8 = (np.concatenate([a, z]) for a in (e8, r8, s8))
-            kidx = np.concatenate([kidx, np.zeros(pad_to - n, np.int32)])
-        args = [torch.from_numpy(a).to(self.device) for a in (e8, r8, s8, kidx)]
-        return ecdsa_verify_comb(*args, gtab, qtab)[:n]
+            arrays = [np.concatenate([a, z]) for a in arrays]
+            lanes = np.zeros(pad_to - n, np.int32)
+            if ok is not None:
+                ok = np.concatenate([ok, lanes])
+            kidx = np.concatenate([kidx, lanes])
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        mask = self._launch([dev(a) for a in arrays],
+                            None if ok is None else dev(ok), dev(kidx),
+                            gtab, qtab)
+        return mask[:n]

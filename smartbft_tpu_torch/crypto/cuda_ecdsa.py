@@ -42,6 +42,15 @@ from .bignum import (
     int_to_limbs,
     is_zero,
 )
+from .opcount import (
+    PROJ,
+    WEIERSTRASS,
+    joint_table,
+    joint_walk,
+    lane_bytes,
+    lane_ints,
+    walk_ops,
+)
 from .p256 import B as CURVE_B, GX, GY, N, P
 
 #: launches and lanes of the CUDA kernel
@@ -289,21 +298,68 @@ def ecdsa_verify(e, r, s, qx, qy) -> torch.Tensor:
     return ecdsa_verify_plain(*args)
 
 
-#: Montgomery operations of one lane's scalar work mod n, shared by both
-#: kernels: products for the operands into Montgomery form (3), the
-#: inversion's 14 powers and 63 window steps, u1/u2 (4); squarings for the
-#: inversion's 63 x 4
-N_MUL, N_SQR = 3 + 14 + 63 + 4, 63 * 4
-#: a complete doubling mod p is 3 squarings + 10 products, an addition 14
-#: products; the final comparison is 4 products
-DBL_SQR, DBL_MUL, ADD_MUL, FINAL_MUL = 3, 10, 14, 4
-#: Montgomery operations of one lane by modulus and kind: besides the
-#: scalar work, the key into Montgomery form (2 products) and its curve
-#: check (2 squarings + 1 product), the joint table (2 doublings, 2 + 16
-#: additions) and 128 x (2 doublings + 1 addition)
-MONT_OPS_PER_LANE = {
-    "n_mul": N_MUL, "n_sqr": N_SQR,
-    "p_mul": (2 + 1 + 2 * DBL_MUL + 18 * ADD_MUL
-              + NDIGITS * (2 * DBL_MUL + ADD_MUL) + FINAL_MUL),
-    "p_sqr": 2 + 2 * DBL_SQR + NDIGITS * 2 * DBL_SQR,
-}
+# ---------------------------------------------------------------------------
+# the work a verify needs (:mod:`.opcount`)
+# ---------------------------------------------------------------------------
+
+#: the scalar work mod n of a lane past its range checks, shared by both
+#: kernels: s into Montgomery form, the inversion's powers s^2..s^15 and
+#: its 63 window steps (4 squarings, and a product unless the digit is 0),
+#: then u1 = e·w and u2 = r·w, which leave the Montgomery domain as the
+#: plain e and r meet the Montgomery w
+N_OPS = {"n_mul": 1 + 14 + sum(d != 0 for d in INV_DIGITS[1:]) + 2,
+         "n_sqr": 4 * (len(INV_DIGITS) - 1)}
+
+
+def scalars_needed(e8, r8, s8):
+    """(range ok, u1, u2) of each lane from the raw inputs: (B,) bool and
+    two lists of Python ints (0 where the range check fails)."""
+    es, rs, ss = (lane_ints(a) for a in (e8, r8, s8))
+    ok = np.array([0 < r < N and 0 < s < N for r, s in zip(rs, ss)], bool)
+    u1, u2 = [], []
+    for e, r, s, good in zip(es, rs, ss, ok):
+        w = pow(s, -1, N) if good else 0
+        u1.append(e * w % N)
+        u2.append(r * w % N)
+    return ok, u1, u2
+
+
+def final_ops(acc, r8) -> np.ndarray:
+    """Products of the comparison x(R) mod n == r: r·Z, and (r + n)·Z
+    where r + n < p; none where Z = 1."""
+    cand = np.array([r + N < P for r in lane_ints(r8)], bool)
+    return (acc == PROJ) * (1 + cand)
+
+
+def mont_ops(e, r, s, qx, qy) -> dict:
+    """Products and squarings by modulus the batch needs.  A lane failing
+    its range checks needs none.  Any other needs Q's curve check (2
+    squarings + 1 product mod p); on the curve, the scalar work
+    (:data:`N_OPS`), the table points its digits use, the scan and the
+    comparison.  Table points: 2Q (a doubling at Z = 1), 3Q = 2Q + Q, and
+    iG + jQ for i, j >= 1 (10 products for j = 1, else 13); G's multiples
+    are constants.  No conversion into Montgomery form mod p is counted:
+    the reduction mod p needs none."""
+    ok, u1, u2 = scalars_needed(e, r, s)
+    xs, ys = lane_ints(qx), lane_ints(qy)
+    on = np.array([x < P and y < P and (y * y - x * x * x + 3 * x - CURVE_B)
+                   % P == 0 for x, y in zip(xs, ys)], bool)
+    bsz = len(xs)
+    d1, d2 = (_two_bit_digits(bytes_to_limbs(torch.from_numpy(
+        lane_bytes(u)))).numpy() for u in (u1, u2))
+    idx = d1 * 4 + d2  # (B, 128)
+    mul, sqr, acc = walk_ops(joint_walk(idx), bsz, WEIERSTRASS)
+    mul += final_ops(acc, r)
+
+    used, _ = joint_table(idx, bsz, np.argmax(idx != 0, axis=1))
+    need3 = used[:, :, 3].any(1)
+    need2 = used[:, :, 2].any(1) | need3
+    mul += (need2 * 7 + need3 * 13 + 10 * used[:, 1:, 1].sum(1)
+            + 13 * used[:, 1:, 2:].sum((1, 2)))
+    sqr += need2 * 2
+
+    walk = ok & on
+    return {"n_mul": int(walk.sum()) * N_OPS["n_mul"],
+            "n_sqr": int(walk.sum()) * N_OPS["n_sqr"],
+            "p_mul": int((ok + walk * mul).sum()),
+            "p_sqr": int((2 * ok + walk * sqr).sum())}

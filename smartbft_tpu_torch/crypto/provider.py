@@ -3,14 +3,16 @@
 The crypto seam of the protocol core:
 
 * :class:`Keyring` — node-id -> public key registry + own private key.
-* :class:`CryptoProvider` / :class:`P256CryptoProvider` — the crypto subset
-  of the Verifier/Signer SPI.  Signing is host-side (one signature per
-  decision; never hot).  Verification goes through a pluggable engine:
+* :class:`CryptoProvider` / :class:`P256CryptoProvider` /
+  :class:`Ed25519CryptoProvider` — the crypto subset of the
+  Verifier/Signer SPI.  Signing is host-side (one signature per decision;
+  never hot).  Verification goes through a pluggable engine:
     - :class:`HostVerifyEngine`  — pure-Python ints; the CPU floor, and
       the breaker's fallback where a caller passes one explicitly.
     - :class:`TorchVerifyEngine` — pads votes into fixed-size lanes and runs
       ONE CUDA kernel launch per flush: the comb kernel for registered keys,
-      the generic kernel for a chunk that holds an unregistrable key.
+      the generic kernel for a chunk that holds an unregistrable key, for
+      P-256 or Ed25519.
 * :class:`AsyncBatchCoalescer` — merges concurrent quorum checks (across
   sequences, replicas and view-change validations) into shared launches,
   with dedupe, per-tag attribution, and the deadline / retry / breaker /
@@ -39,9 +41,11 @@ from ..messages import Proposal, Signature
 from ..types import VerifyPlaneDown, proposal_digest
 from ..utils.memo import LruMemo
 from ..utils.tasks import create_logged_task
-from . import p256
+from . import ed25519, p256
 from .cuda_comb import CombRegistryFull, CombVerifier
 from .cuda_ecdsa import ecdsa_verify
+from .cuda_ed25519 import Ed25519CombVerifier
+from .cuda_eddsa import eddsa_verify
 
 #: faults of a kernel itself: the verify plane raises them as they are,
 #: never retrying them or moving the wave to a host engine
@@ -279,16 +283,33 @@ class HostVerifyEngine:
         return out
 
 
+def _generic_launch(kernel, arrays, size: int, device) -> torch.Tensor:
+    """One generic-kernel launch on host arrays zero-padded to ``size``
+    lanes (a padding lane fails: zero r, s for P-256, ok = 0 for
+    Ed25519)."""
+    n = arrays[0].shape[0]
+    return kernel(*(torch.from_numpy(np.concatenate(
+        [a, np.zeros((size - n,) + a.shape[1:], a.dtype)])).to(device)
+        for a in arrays))
+
+
+#: per scheme: the comb verifier (registered keys), and the generic
+#: route's host marshalling and kernel (any key)
+_ROUTES = {p256: (CombVerifier, p256.verify_bytes, ecdsa_verify),
+           ed25519: (Ed25519CombVerifier, ed25519.verify_inputs,
+                     eddsa_verify)}
+
+
 class TorchVerifyEngine:
-    """Padded, batched P-256 verification on the CUDA card.
+    """Padded, batched signature verification on the CUDA card.
 
     Every chunk pads up to the next rung of ``pad_sizes`` and runs as ONE
-    kernel launch: the comb kernel (:mod:`.cuda_comb`) when every signer
-    key is registrable, else the generic kernel (:mod:`.cuda_ecdsa`).  That
-    routing is semantics (an unregistrable key), not error handling: a
-    build or launch error raises to the caller.  The comb registry holds
-    :class:`CombVerifier`'s 128 keys; a chunk signed by a key beyond them
-    runs the generic kernel.
+    kernel launch: the scheme's comb kernel when every signer key is
+    registrable, else its generic kernel — for P-256 :mod:`.cuda_comb` /
+    :mod:`.cuda_ecdsa`, for Ed25519 :mod:`.cuda_ed25519` /
+    :mod:`.cuda_eddsa`.  That routing is semantics (a key beyond the comb
+    registry's 128, or one that does not decode), not error handling: a
+    build or launch error raises to the caller.
 
     ``device="cuda"`` is the default and raises when no card is visible;
     ``device="cpu"`` runs the kernels' plain-torch versions (tests).
@@ -300,17 +321,22 @@ class TorchVerifyEngine:
     def __init__(self, device="cuda",
                  pad_sizes: Sequence[int] = (8, 32, 128, 512, 2048, 4096,
                                              8192, 16384),
-                 metrics=None):
+                 scheme=p256, metrics=None):
         """``pad_sizes``: the top rung bounds how much of a large cluster's
-        quorum wave one launch absorbs (n=128 -> 10880 signatures)."""
+        quorum wave one launch absorbs (n=128 -> 10880 signatures).
+        ``scheme``: :mod:`.p256` or :mod:`.ed25519`."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchVerifyEngine: CUDA is not available; pass "
                 "device='cpu' to run the plain-torch versions")
-        self.scheme = p256
+        if scheme not in _ROUTES:
+            raise ValueError(f"TorchVerifyEngine: no kernels for scheme "
+                             f"{getattr(scheme, '__name__', scheme)}")
+        self.scheme = scheme
+        comb_cls, self._generic_inputs, self._generic_kernel = _ROUTES[scheme]
         self.pad_sizes = tuple(sorted(pad_sizes))
-        self._comb = CombVerifier(self.device)
+        self._comb = comb_cls(self.device)
         self._lock = threading.Lock()
         self.stats = VerifyStats(metrics=metrics)
         #: launches per pad rung, and per kernel route ("comb"/"generic")
@@ -324,7 +350,7 @@ class TorchVerifyEngine:
         return self.pad_sizes[-1]
 
     def verify(self, items) -> list[bool]:
-        """items: p256.make_item tuples -> validity per item."""
+        """items: scheme.make_item tuples -> validity per item."""
         if not items:
             return []
         out: list[bool] = []
@@ -354,11 +380,9 @@ class TorchVerifyEngine:
         route = "comb"
         if mask is None:
             route = "generic"
-            arrays = []
-            for a in p256.verify_bytes(items):
-                a = np.concatenate([a, np.zeros((size - n, 32), np.uint8)])
-                arrays.append(torch.from_numpy(a).to(self.device))
-            mask = ecdsa_verify(*arrays)[:n]
+            mask = _generic_launch(self._generic_kernel,
+                                   self._generic_inputs(items), size,
+                                   self.device)[:n]
         out = [bool(v) for v in mask.cpu().tolist()]  # waits for the kernel
         dt = time.perf_counter() - t0
         with self._lock:
@@ -894,8 +918,12 @@ class CryptoProvider:
     The application's Verifier implementation delegates
     sign/verify-signature duties here and keeps request/proposal semantics
     (payload checks, request extraction) to itself.  ``scheme`` selects the
-    signature system (:mod:`p256`, the port's only scheme so far); the
-    engine must be built for the same scheme.
+    signature system (:mod:`p256` by default; :mod:`ed25519` — BASELINE.md
+    configs[3] — through :class:`Ed25519CryptoProvider`); the engine must
+    be built for the same scheme.  With no engine and no coalescer the
+    provider verifies on a :class:`HostVerifyEngine` of its scheme: the
+    reference's per-replica CPU verifier, which a caller picks by passing
+    no engine (not a fallback from a device engine).
     """
 
     scheme = p256
@@ -1190,3 +1218,9 @@ class P256CryptoProvider(CryptoProvider):
     """ECDSA P-256 provider (the default scheme)."""
 
     scheme = p256
+
+
+class Ed25519CryptoProvider(CryptoProvider):
+    """Ed25519 provider — the alt-curve variant of BASELINE.md configs[3]."""
+
+    scheme = ed25519

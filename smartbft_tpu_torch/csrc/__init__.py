@@ -23,8 +23,10 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "cuda")
 #: kernel library name -> its source in this directory
-SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu"}
-HEADERS = ("p256_field.cuh",)
+SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
+           "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu"}
+#: every header; an edit to any of them rebuilds every kernel
+HEADERS = ("field256.cuh", "p256_field.cuh", "ed25519_field.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

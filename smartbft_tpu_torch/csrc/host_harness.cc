@@ -1,9 +1,11 @@
-// Host build of p256_field.cuh for the CPU tests: g++ compiles the same
-// field, curve and per-lane verify routines that the CUDA kernels run, and
-// exposes them through a C interface so Python can hold them against
-// integer arithmetic before any time is spent on the card.
+// Host build of the kernels' headers for the CPU tests: g++ compiles the
+// same field, curve and per-lane verify routines that the CUDA kernels run
+// (p256_field.cuh, ed25519_field.cuh, over field256.cuh), and exposes them
+// through a C interface so Python can hold them against integer
+// arithmetic before any time is spent on the card.
 //
-//   g++ -O2 -std=c++17 -shared -fPIC -o libp256_host.so host_harness.cc
+//   g++ -O2 -std=c++17 -shared -fPIC -o libkernels_host.so host_harness.cc
+#include "ed25519_field.cuh"
 #include "p256_field.cuh"
 
 using p256::Fe;
@@ -24,6 +26,17 @@ void put_pt(uint32_t* dst, const Pt& p) {
 }
 
 p256::Mod pick(int which) { return which ? p256::mod_n() : p256::mod_p(); }
+
+ed25519::Ept get_ept(const uint32_t* src) {
+  return ed25519::Ept{get(src), get(src + 8), get(src + 16), get(src + 24)};
+}
+
+void put_ept(uint32_t* dst, const ed25519::Ept& p) {
+  put(dst, p.x);
+  put(dst + 8, p.y);
+  put(dst + 16, p.z);
+  put(dst + 24, p.t);
+}
 
 }  // namespace
 
@@ -80,6 +93,79 @@ void p256h_ecdsa_verify(int n, const uint32_t* e, const uint32_t* r,
   for (int i = 0; i < n; ++i)
     out[i] = p256::ecdsa_verify_lane(e + 8 * i, r + 8 * i, s + 8 * i,
                                      qx + 8 * i, qy + 8 * i);
+}
+
+// ---------------------------------------------------------------------------
+// Ed25519 (ed25519_field.cuh)
+// ---------------------------------------------------------------------------
+
+void edh_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, f256::mont_mul(get(a), get(b), ed25519::mod_p()));
+}
+
+void edh_mont_sqr(const uint32_t* a, uint32_t* out) {
+  put(out, f256::mont_sqr(get(a), ed25519::mod_p()));
+}
+
+void edh_mod_add(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, f256::mod_add(get(a), get(b), ed25519::mod_p()));
+}
+
+void edh_mod_sub(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, f256::mod_sub(get(a), get(b), ed25519::mod_p()));
+}
+
+// a^(p-2) by square-and-multiply over the header's products and squarings
+// (the kernels need no inversion; this is a 500-deep chain of them)
+void edh_inv(const uint32_t* a, uint32_t* out) {
+  const f256::Mod m = ed25519::mod_p();
+  const uint32_t e[8] = {0xFFFFFFEBu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                         0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu};
+  const Fe x = get(a);
+  Fe acc = ed25519::p_one();
+  for (int bit = 254; bit >= 0; --bit) {
+    acc = f256::mont_sqr(acc, m);
+    if ((e[bit >> 5] >> (bit & 31)) & 1u) acc = f256::mont_mul(acc, x, m);
+  }
+  put(out, acc);
+}
+
+void edh_pt_dbl(const uint32_t* p, uint32_t* out) {
+  put_ept(out, ed25519::pt_dbl(get_ept(p)));
+}
+
+void edh_pt_add(const uint32_t* p, const uint32_t* q, uint32_t* out) {
+  put_ept(out, ed25519::pt_add(get_ept(p), get_ept(q)));
+}
+
+uint32_t edh_on_curve(const uint32_t* xm, const uint32_t* ym) {
+  return ed25519::on_curve(get(xm), get(ym));
+}
+
+// the Ed25519 comb kernel's lane loop, run sequentially
+void edh_comb_verify(int n, const uint32_t* s, const uint32_t* h,
+                     const uint32_t* rx, const uint32_t* ry,
+                     const int32_t* ok, const int32_t* kidx,
+                     const uint32_t* btab, const uint32_t* qtab, int nkeys,
+                     uint32_t* out) {
+  for (int i = 0; i < n; ++i) {
+    int k = kidx[i];
+    const uint32_t* q =
+        (k >= 0 && k < nkeys) ? qtab + (size_t)k * 256 * 24 : nullptr;
+    out[i] = ed25519::comb_verify_lane(s + 8 * i, h + 8 * i, rx + 8 * i,
+                                       ry + 8 * i, ok[i], btab, q);
+  }
+}
+
+// the generic Ed25519 kernel's lane loop, run sequentially
+void edh_eddsa_verify(int n, const uint32_t* s, const uint32_t* h,
+                      const uint32_t* rx, const uint32_t* ry,
+                      const uint32_t* ax, const uint32_t* ay,
+                      const int32_t* ok, uint32_t* out) {
+  for (int i = 0; i < n; ++i)
+    out[i] = ed25519::eddsa_verify_lane(s + 8 * i, h + 8 * i, rx + 8 * i,
+                                        ry + 8 * i, ax + 8 * i, ay + 8 * i,
+                                        ok[i]);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
-"""Native (C++) WAL helpers, loaded via ctypes with Python fallbacks.
+"""Native (C++) host helpers, loaded via ctypes with Python fallbacks.
 
-The WAL's frame append and CRC32C run in C++ (``crc32c.cc``,
-``wal_frame.cc``).  The library is compiled with ``g++`` on first use into
+The WAL's frame append and CRC32C (``crc32c.cc``, ``wal_frame.cc``) and
+the Ed25519 point decompression (``ed25519_fp.cc``) run in C++.  The
+library is compiled with ``g++`` on first use into
 ``smartbft_tpu_torch/_build/`` (git-ignored) and cached there; a build
-failure falls back to the pure-Python implementations, so the WAL never
-hard-depends on a toolchain.  (The CUDA kernels are built separately, by
-:mod:`smartbft_tpu_torch.csrc`, and never fall back.)
+failure falls back to the pure-Python implementations, so neither the WAL
+nor the Ed25519 host half hard-depends on a toolchain.  (The CUDA kernels
+are built separately, by :mod:`smartbft_tpu_torch.csrc`, and never fall
+back.)
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _LIB_NAME = "libsmartbft_native.so"
-_SOURCES = ["crc32c.cc", "wal_frame.cc"]
+_SOURCES = ["crc32c.cc", "wal_frame.cc", "ed25519_fp.cc"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -90,6 +92,9 @@ def load() -> Optional[ctypes.CDLL]:
                 ctypes.c_int,
                 ctypes.c_int,
             ]
+            lib.smartbft_ed_decompress.restype = ctypes.c_int
+            lib.smartbft_ed_decompress.argtypes = [ctypes.c_char_p,
+                                                   ctypes.c_char_p]
             _lib = lib
         except (OSError, AttributeError):
             _lib = None
@@ -160,3 +165,23 @@ def wal_append(fd: int, payload: bytes, crc: int, update_crc: bool,
     if n < 0:
         raise OSError(ctypes.get_errno(), "wal: native append failed")
     return int(n), int(crc_io.value)
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 point decompression (ed25519_fp.cc)
+# ---------------------------------------------------------------------------
+
+def ed_available() -> bool:
+    return load() is not None
+
+
+def ed_decompress(comp: bytes) -> Optional[tuple[int, int]]:
+    """RFC 8032 decompression of a 32-byte encoding; (x, y) ints, or None
+    when the encoding is invalid.  Needs the native library
+    (:func:`ed_available`)."""
+    out = ctypes.create_string_buffer(64)
+    if load().smartbft_ed_decompress(comp, out) == 0:
+        return None
+    raw = out.raw
+    return (int.from_bytes(raw[:32], "little"),
+            int.from_bytes(raw[32:], "little"))

@@ -3,8 +3,9 @@
 Re-design of upstream SmartBFT test/test_app.go:28-494.  Crypto is trivial by
 default (signature = node id, verification always succeeds, auxiliary data
 passes through) but a real provider (smartbft_tpu_torch.crypto.provider.
-P256CryptoProvider) can be injected via ``crypto=`` — then every commit vote
-carries a real P-256 signature and verification can genuinely fail.  Plus: a
+P256CryptoProvider or Ed25519CryptoProvider) can be injected via
+``crypto=`` — then every commit vote carries a real signature and
+verification can genuinely fail.  Plus: a
 shared in-memory ledger that doubles as the Synchronizer source,
 fault-injection hooks, restart with real per-node WAL dirs, and the fast
 test configuration.
@@ -219,8 +220,9 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
         self.recorder = recorder
         self.clock = scheduler
         # optional real-crypto provider (smartbft_tpu_torch.crypto.provider.
-        # P256CryptoProvider); when set, Signer/Verifier crypto methods
-        # delegate to it and the View's async batch path is enabled
+        # P256CryptoProvider / Ed25519CryptoProvider); when set,
+        # Signer/Verifier crypto methods delegate to it and the View's
+        # async batch path is enabled
         self.crypto = crypto
         if crypto is not None and hasattr(crypto, "verify_consenter_sigs_batch_async"):
             self.verify_consenter_sigs_batch_async = (

@@ -17,6 +17,7 @@ from smartbft_tpu.crypto import pallas_comb as pc
 from smartbft_tpu_torch.crypto import bignum as bn
 from smartbft_tpu_torch.crypto import cuda_comb as cc
 from smartbft_tpu_torch.crypto import p256
+from smartbft_tpu_torch.crypto.opcount import lane_bytes
 
 # small plain-torch tensors gain nothing from intra-op threads, and the
 # suite runs in parallel worker processes
@@ -154,13 +155,52 @@ def _count_mont_ops(monkeypatch):
     return counts
 
 
-def test_op_counts_of_the_bound_match_the_plain_version(monkeypatch):
+def _lane(e: int, r: int, s: int, kidx: int = 0):
+    """One lane's comb inputs with the given e, r and s, on a real key."""
     items, _ = _items(1, nkeys=1)
     reg = cc.CombKeyRegistry()
-    args = (*cc.pack_items(items, reg), cc.g_table(), reg.stacked())
+    cc.pack_items(items, reg)
+    return (*(lane_bytes([v]) for v in (e, r, s)),
+            np.array([kidx], np.int32), cc.g_table(), reg.stacked())
+
+
+#: r + n < p: the comparison tries both candidates
+_BOTH = 1 << 31 < p256.P - p256.N
+
+
+def test_op_counts_of_the_bound_match_the_plain_version(monkeypatch):
+    """The plain version runs the kernel's formulas on every lane; the
+    bound counts that less what the verify does not need.  With s = 1, u1
+    = e and u2 = r, here 2^252 - 1, which has no zero comb digit:"""
+    lane = _lane((1 << 252) - 1, (1 << 252) - 1, 1)
     counts = _count_mont_ops(monkeypatch)
-    cc.ecdsa_verify_comb(*args)
-    assert counts == cc.MONT_OPS_PER_LANE
+    cc.ecdsa_verify_comb(*lane)
+    assert counts == {"n_mul": 84, "n_sqr": 252, "p_mul": 1220, "p_sqr": 96}
+    # not needed mod n: r and e into and u1, u2 out of Montgomery form
+    # (4), the inversion's 8 products by s^0 (8); mod p: the first
+    # iteration's doubling and G addition on the identity (10 + 14, and 3
+    # squarings) and its Q addition with both Z = 1 (14 -> 10); in each of
+    # the other 31, one product of the G and of the Q addition (Z2 = 1);
+    # r and r + n into Montgomery form and (r + n)·Z, since r + n > p
+    assert cc.mont_ops(*lane) == {
+        "n_mul": 84 - 12, "n_sqr": 252,
+        "p_mul": 1220 - (24 + 4 + 31 * 2 + 3), "p_sqr": 96 - 3}
+
+
+@pytest.mark.parametrize("e,r,s,kidx,want", [
+    (5, 0, 3, 0, (0, 0)),                        # r = 0
+    (5, 3, p256.N, 0, (0, 0)),                   # s >= n
+    (5, 3, 1, 7, (0, 0)),                        # key index outside the stack
+    # the last iteration copies a G entry and adds a Q entry, both affine
+    (1, 1, 1, 0, (10 + 1 + _BOTH, 0)),
+    # the first iteration does the same, then 31 doublings
+    (1 << 31, 1 << 31, 1, 0, (10 + 31 * 10 + 1 + _BOTH, 31 * 3)),
+])
+def test_bound_counts_only_the_work_the_verify_needs(e, r, s, kidx, want):
+    n_ops = {"n_mul": 72, "n_sqr": 252} if want[0] else \
+        {"n_mul": 0, "n_sqr": 0}
+    assert cc.mont_ops(*_lane(e, r, s, kidx)) == \
+        {**n_ops, "p_mul": want[0], "p_sqr": want[1]}
 
 
 def test_registry_cap_validation_and_stacking(two_keys):

@@ -32,8 +32,17 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_sources_and_flags_target_hopper():
-    assert set(csrc.SOURCES) == {"cuda_comb", "cuda_ecdsa"}
+    assert set(csrc.SOURCES) == {"cuda_comb", "cuda_ecdsa", "cuda_ed25519",
+                                 "cuda_eddsa"}
     assert "arch=compute_90a,code=sm_90a" in csrc.NVCC_FLAGS
+    # every header is a build dependency, and every header a source
+    # includes is listed
+    root = csrc._DIR
+    for name in list(csrc.SOURCES.values()) + list(csrc.HEADERS):
+        with open(f"{root}/{name}") as f:
+            for line in f:
+                if line.startswith('#include "'):
+                    assert line.split('"')[1] in csrc.HEADERS, (name, line)
 
 
 def test_launch_counter_is_thread_safe():

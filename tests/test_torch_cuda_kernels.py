@@ -11,6 +11,9 @@ import torch
 
 from smartbft_tpu_torch.crypto import cuda_comb as cc
 from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+from smartbft_tpu_torch.crypto import ed25519 as ed
 from smartbft_tpu_torch.crypto import p256
 from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
 
@@ -91,3 +94,69 @@ def test_launcher_rejects_cpu_tables(cuda):
                                   torch.from_numpy(cc.g_table()),
                                   torch.from_numpy(np.zeros((1, 256, 3, 8),
                                                             np.uint32)))
+
+
+def _ed_items(n, keys, tag):
+    """Ed25519 votes with a corrupted S, a tampered message, S >= L and an
+    undecodable R in lanes 1-4."""
+    items = []
+    for i in range(n):
+        priv, pub = keys[i % len(keys)]
+        msg = f"{tag}-{i}".encode()
+        items.append(ed.make_item(msg, ed.sign_raw(priv, msg), pub))
+    m, sig, pub = items[1]
+    bad_s = (int.from_bytes(sig[32:], "little") + 1) % ed.L
+    items[1] = (m, sig[:32] + bad_s.to_bytes(32, "little"), pub)
+    m, sig, pub = items[2]
+    items[2] = (b"tampered", sig, pub)
+    m, sig, pub = items[3]
+    items[3] = (m, sig[:32] + (ed.L + 1).to_bytes(32, "little"), pub)
+    m, sig, pub = items[4]
+    items[4] = (m, b"\xff" * 32 + sig[32:], pub)
+    return items
+
+
+@pytest.mark.parametrize("bsz", [1, 130, 2048])
+def test_ed_comb_kernel_matches_plain(cuda, bsz):
+    keys = [ed.keygen(b"gpu-ed-%d" % i) for i in range(5)]
+    items = _ed_items(max(bsz, 8), keys, "edc")[:bsz]
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+    if bsz > 6:
+        kidx[5] = (kidx[5] + 1) % 5          # wrong key claimed
+        kidx[6], ok[6] = 7, 1                # a zero-padded stack slot
+    args = [torch.from_numpy(a).to(cuda) for a in (s8, h8, rx8, ry8, ok, kidx)]
+    tables = [torch.from_numpy(ced.b_table()).to(cuda),
+              torch.from_numpy(reg.stacked()).to(cuda)]
+    before = ced.LAUNCHES.launches
+    got = ced.eddsa_verify_comb(*args, *tables)
+    assert ced.LAUNCHES.launches == before + 1
+    want = ced.eddsa_verify_comb_plain(*args, *tables)
+    assert torch.equal(got, want)
+    expect = [int(ed.verify_item(it)) for it in items[:8]]
+    if bsz > 6:
+        expect[5] = expect[6] = 0
+    assert got.cpu().tolist()[:8] == expect
+
+
+@pytest.mark.parametrize("bsz", [1, 130])
+def test_ed_generic_kernel_matches_plain(cuda, bsz):
+    keys = [ed.keygen(b"gpu-edg-%d" % i) for i in range(3)]
+    items = _ed_items(max(bsz, 8), keys, "edg")[:bsz]
+    if bsz > 5:
+        m, sig, _ = items[5]
+        items[5] = (m, sig, b"\xff" * 32)    # undecodable public key
+    arrays = [torch.from_numpy(a).to(cuda) for a in ed.verify_inputs(items)]
+    before = cgd.LAUNCHES.launches
+    got = cgd.eddsa_verify(*arrays)
+    assert cgd.LAUNCHES.launches == before + 1
+    assert torch.equal(got, cgd.eddsa_verify_plain(*arrays))
+    assert got.cpu().tolist() == [int(ed.verify_item(it)) for it in items]
+
+
+def test_ed_engine_on_the_card(cuda):
+    keys = [ed.keygen(b"gpu-ede-%d" % i) for i in range(4)]
+    eng = TorchVerifyEngine(scheme=ed)
+    items = _ed_items(8, keys, "ede")
+    assert eng.verify(items) == [ed.verify_item(it) for it in items]
+    assert eng.route_launches == {"comb": 1, "generic": 0}

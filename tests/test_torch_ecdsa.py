@@ -18,6 +18,7 @@ from smartbft_tpu.crypto import pallas_ecdsa as pe
 from smartbft_tpu_torch.crypto import bignum as bn
 from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
 from smartbft_tpu_torch.crypto import p256
+from smartbft_tpu_torch.crypto.opcount import lane_bytes
 
 # small plain-torch tensors gain nothing from intra-op threads, and the
 # suite runs in parallel worker processes
@@ -137,10 +138,49 @@ def _count_mont_ops(monkeypatch):
     return counts
 
 
+def _lane(e: int, r: int, s: int, qy=None):
+    """One lane's inputs with the given e, r and s, on a real key (or Q's
+    y = ``qy``)."""
+    _, pub = p256.keygen(b"lane")
+    return [lane_bytes([v]) for v in (e, r, s, pub[0],
+                                      pub[1] if qy is None else qy)]
+
+
 def test_op_counts_of_the_bound_match_the_plain_version(monkeypatch):
+    """The plain version runs the kernel's formulas on every lane; the
+    bound counts that less what the verify does not need.  With s = 1, u1
+    = e and u2 = r, here 2^252 - 1: digits (0, 0, 15, ..., 15)."""
+    lane = _lane((1 << 252) - 1, (1 << 252) - 1, 1)
     counts = _count_mont_ops(monkeypatch)
-    ce.ecdsa_verify(*p256.verify_bytes(_matrix()[:1]))
-    assert counts == ce.MONT_OPS_PER_LANE
+    ce.ecdsa_verify(*lane)
+    assert counts == {"n_mul": 84, "n_sqr": 252, "p_mul": 4631, "p_sqr": 776}
+    # not needed mod n: r and e into and u1, u2 out of Montgomery form
+    # (4), the inversion's 8 products by s^0 (8); mod p: Q into Montgomery
+    # form (2); 2G and 3G, constants (10 + 14, and 3 squarings); three
+    # products of 2Q (a doubling at Z = 1, and 1 squaring) and one of 3Q;
+    # the 16 entries but 3G + 3Q (15 x 14 + 1); the first three digits'
+    # six doublings and three additions on the identity (60 + 42, and 18
+    # squarings); r and r + n into Montgomery form and (r + n)·Z, since
+    # r + n > p (3)
+    assert ce.mont_ops(*lane) == {
+        "n_mul": 84 - 12, "n_sqr": 252,
+        "p_mul": 4631 - (2 + 24 + 4 + 211 + 102 + 3), "p_sqr": 776 - 22}
+
+
+@pytest.mark.parametrize("e,r,s,qy,want", [
+    (5, 0, 3, None, (0, 0, 0)),                  # r = 0
+    (5, 3, p256.N, None, (0, 0, 0)),             # s >= n
+    (5, 3, 1, 2, (0, 1, 2)),                     # Q off the curve: its check
+    # u1 = 0, u2 = 1: Q itself is copied, and Z = 1 at the end
+    (0, 1, 1, None, (72, 1, 2)),
+    # u1 = u2 = 1: G + Q (both affine) is built and copied; the
+    # comparison tries r and r + n < p
+    (1, 1, 1, None, (72, 1 + 10 + 2, 2)),
+])
+def test_bound_counts_only_the_work_the_verify_needs(e, r, s, qy, want):
+    assert ce.mont_ops(*_lane(e, r, s, qy)) == {
+        "n_mul": want[0], "n_sqr": 252 if want[0] else 0,
+        "p_mul": want[1], "p_sqr": want[2]}
 
 
 def test_cuda_launcher_checks_its_inputs():

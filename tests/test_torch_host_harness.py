@@ -1,8 +1,8 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
-``smartbft_tpu_torch/csrc/p256_field.cuh`` (through host_harness.cc) and
-the field, curve and per-lane verify routines the kernels run are held
-against Python integers — arithmetic faults show here, before any time on
-the card."""
+``smartbft_tpu_torch/csrc/p256_field.cuh`` and ``ed25519_field.cuh``
+(through host_harness.cc) and the field, curve and per-lane verify
+routines the kernels run are held against Python integers — arithmetic
+faults show here, before any time on the card."""
 
 import ctypes
 import pathlib
@@ -14,6 +14,8 @@ import pytest
 
 from smartbft_tpu_torch.crypto import bignum as bn
 from smartbft_tpu_torch.crypto import cuda_comb as cc
+from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+from smartbft_tpu_torch.crypto import ed25519 as ed
 from smartbft_tpu_torch.crypto import p256
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "smartbft_tpu_torch" / "csrc"
@@ -145,3 +147,109 @@ def test_generic_verify_lanes(lib):
     out = np.zeros(len(items), np.uint32)
     lib.p256h_ecdsa_verify(len(items), *[_ptr(a) for a in arrays], _ptr(out))
     assert out.tolist() == [int(p256.verify_item(it)) for it in items]
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 (ed25519_field.cuh)
+# ---------------------------------------------------------------------------
+
+
+def test_ed_field_mul_sqr_add_sub_inv(lib):
+    mod = ed.P
+    rinv = pow(R, -1, mod)
+    out = np.zeros(8, np.uint32)
+    for x, y in zip(_ints(4, 30, mod), _ints(5, 30, mod)):
+        a, b = _w(x), _w(y)
+        lib.edh_mont_mul(_ptr(a), _ptr(b), _ptr(out))
+        assert _i(out) == x * y * rinv % mod
+        lib.edh_mont_sqr(_ptr(a), _ptr(out))
+        assert _i(out) == x * x * rinv % mod
+        lib.edh_mod_add(_ptr(a), _ptr(b), _ptr(out))
+        assert _i(out) == (x + y) % mod
+        lib.edh_mod_sub(_ptr(a), _ptr(b), _ptr(out))
+        assert _i(out) == (x - y) % mod
+    for x in _ints(6, 5, mod)[:-3] + [1, mod - 1]:
+        lib.edh_inv(_ptr(_w(x * R % mod)), _ptr(out))
+        assert _i(out) == pow(x, -1, mod) * R % mod
+
+
+def _ext(point):
+    """Affine Edwards point -> extended (X : Y : 1 : XY) Montgomery words."""
+    x, y = point
+    return np.concatenate([_w(v * R % ed.P) for v in (x, y, 1, x * y % ed.P)])
+
+
+def _ed_affine(words):
+    x, y, z, t = (_i(words[8 * k:8 * k + 8]) for k in range(4))
+    zi = pow(z, -1, ed.P)  # the Montgomery factors cancel in X/Z, Y/Z
+    assert x * y % ed.P == t * z % ed.P  # T/Z = x y
+    return (x * zi % ed.P, y * zi % ed.P)
+
+
+@pytest.mark.parametrize("k1,k2", [(1, 2), (3, 3), (7, 0), (0, 0), (5, 9)])
+def test_ed_point_double_and_add(lib, k1, k2):
+    b = (ed.BX, ed.BY)
+    p, q = ed.scalar_mult_int(k1, b), ed.scalar_mult_int(k2, b)
+    out = np.zeros(32, np.uint32)
+    lib.edh_pt_add(_ptr(_ext(p)), _ptr(_ext(q)), _ptr(out))
+    assert _ed_affine(out) == ed._aff_add(p, q)
+    lib.edh_pt_dbl(_ptr(_ext(p)), _ptr(out))
+    assert _ed_affine(out) == ed._aff_add(p, p)
+
+
+def test_ed_on_curve(lib):
+    lib.edh_on_curve.restype = ctypes.c_uint32
+    pt = ed.scalar_mult_int(12345, (ed.BX, ed.BY))
+    xm, ym = (_w(v * R % ed.P) for v in pt)
+    assert lib.edh_on_curve(_ptr(xm), _ptr(ym)) == 1
+    ym_off = _w((pt[1] + 1) * R % ed.P)
+    assert lib.edh_on_curve(_ptr(xm), _ptr(ym_off)) == 0
+
+
+def _ed_lanes():
+    """Eight Ed25519 votes by three keys: valid, corrupted S, tampered
+    message, S >= L, an undecodable R."""
+    keys = [ed.keygen(b"edh-%d" % i) for i in range(3)]
+    items = []
+    for i in range(8):
+        priv, pub = keys[i % 3]
+        msg = b"e-%d" % i
+        items.append(ed.make_item(msg, ed.sign_raw(priv, msg), pub))
+    m, sig, pub = items[2]
+    bad_s = (int.from_bytes(sig[32:], "little") + 1) % ed.L
+    items[2] = (m, sig[:32] + bad_s.to_bytes(32, "little"), pub)
+    m, sig, pub = items[3]
+    items[3] = (b"tampered", sig, pub)
+    m, sig, pub = items[4]
+    items[4] = (m, sig[:32] + (ed.L + 3).to_bytes(32, "little"), pub)
+    m, sig, pub = items[5]
+    items[5] = (m, b"\xff" * 32 + sig[32:], pub)
+    return items
+
+
+def test_ed_comb_verify_of_eight_lanes(lib):
+    items = _ed_lanes()
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+    kidx[6] = (kidx[6] + 1) % 3   # valid signature under the wrong key
+    kidx[7], ok[7] = 3, 1          # ok = 1 on the zero-padded stack slot
+    expect = [int(ed.verify_item(it)) for it in items]
+    expect[6] = expect[7] = 0
+    btab, qtab = ced.b_table(), reg.stacked()
+    assert qtab.shape[0] == 4 and not qtab[3].any()
+    out = np.zeros(8, np.uint32)
+    lib.edh_comb_verify(8, *[_ptr(a) for a in (s8, h8, rx8, ry8, ok, kidx)],
+                        _ptr(btab), _ptr(qtab), qtab.shape[0], _ptr(out))
+    assert out.tolist() == expect
+    assert expect == [1, 1, 0, 0, 0, 0, 0, 0]
+
+
+def test_ed_generic_verify_lanes(lib):
+    items = _ed_lanes()[:6]
+    m, sig, _ = items[0]
+    items.append((m, sig, b"\xff" * 32))  # undecodable public key
+    arrays = ed.verify_inputs(items)
+    out = np.zeros(len(items), np.uint32)
+    lib.edh_eddsa_verify(len(items), *[_ptr(a) for a in arrays], _ptr(out))
+    assert out.tolist() == [int(ed.verify_item(it)) for it in items]
+    assert out.tolist() == [1, 1, 0, 0, 0, 0, 0]

@@ -37,9 +37,11 @@ def test_port_module_imports_no_jax(path):
 
 def test_scan_covers_the_kernel_modules():
     names = {p.name for p in PORT.rglob("*.py")}
-    assert {"cuda_comb.py", "cuda_ecdsa.py", "provider.py",
+    assert {"cuda_comb.py", "cuda_ecdsa.py", "cuda_ed25519.py",
+            "cuda_eddsa.py", "ed25519.py", "provider.py",
             "consensus.py"} <= names
-    assert list((PORT / "csrc").glob("*.cu"))
+    assert {p.name for p in (PORT / "csrc").glob("*.cu")} >= {
+        "cuda_comb.cu", "cuda_ecdsa.cu", "cuda_ed25519.cu", "cuda_eddsa.cu"}
 
 
 def test_importing_the_port_loads_no_jax():

@@ -8,12 +8,15 @@ import asyncio
 import pytest
 import torch
 
+from smartbft_tpu.crypto import ed25519 as jed
 from smartbft_tpu.crypto import p256 as jp256
 from smartbft_tpu_torch import csrc
 from smartbft_tpu_torch.crypto import cuda_comb as cc
+from smartbft_tpu_torch.crypto import ed25519 as ed
 from smartbft_tpu_torch.crypto import p256
 from smartbft_tpu_torch.crypto.provider import (
     AsyncBatchCoalescer,
+    Ed25519CryptoProvider,
     HostVerifyEngine,
     Keyring,
     P256CryptoProvider,
@@ -222,3 +225,77 @@ def test_failing_kernel_surfaces_as_an_error(keyrings, monkeypatch, error):
     snap = prov.coalescer.fault_snapshot()
     assert snap["host_fallback_batches"] == 0 and snap["opens"] == 0
     assert snap["retries"] == 0 and len(calls) == 2
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 (BASELINE configs[3]) on the same verify plane
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ed_keyrings():
+    return Keyring.generate([1, 2, 3, 4], seed=b"ed-t", scheme=ed)
+
+
+def test_ed25519_keyrings_match_the_jax_package(ed_keyrings):
+    from smartbft_tpu.crypto.provider import Keyring as JKeyring
+
+    j = JKeyring.generate([1, 2, 3, 4], seed=b"ed-t", scheme=jed)
+    for i in ed_keyrings:
+        assert ed_keyrings[i].private_key == j[i].private_key
+        assert ed_keyrings[i].public_keys == j[i].public_keys
+
+
+def test_ed25519_engine_batch(ed_keyrings):
+    """The JAX package's ``test_jax_engine_batch`` on TorchVerifyEngine:
+    a quorum with one forged (all-zero) signature, one launch."""
+    eng = TorchVerifyEngine(device="cpu", pad_sizes=(8,), scheme=ed)
+    provs = {i: Ed25519CryptoProvider(ed_keyrings[i], engine=eng)
+             for i in (1, 2, 3, 4)}
+    prop = Proposal(payload=b"x")
+    sigs = [provs[i].sign_proposal(prop, b"a%d" % i) for i in (1, 2, 3, 4)]
+    sigs[2] = Signature(signer=3, value=b"\x00" * 64, msg=sigs[2].msg)
+    auxes = provs[1].verify_consenter_sigs_batch(sigs, prop)
+    assert auxes == [b"a1", b"a2", None, b"a4"]
+    # the forged signature decodes, so all 4 items reach the one launch
+    assert eng.stats.launches == 1 and eng.stats.sigs_verified == 4
+    assert eng.route_launches == {"comb": 1, "generic": 0}
+    assert provs[1].invalid_by_signer == {3: {"invalid_sig": 1}}
+
+
+def test_ed25519_unregistrable_key_routes_to_generic(ed_keyrings):
+    """A chunk holding a key the registry cannot take (here one that does
+    not decode) runs the generic kernel; verdicts are verify_item's."""
+    eng = TorchVerifyEngine(device="cpu", pad_sizes=(4,), scheme=ed)
+    ring = ed_keyrings[1]
+    good = ed.make_item(b"g", ed.sign_raw(ring.private_key, b"g"),
+                        ring.public_keys[1])
+    bad = ed.make_item(b"g", good[1], b"\xff" * 32)
+    assert eng.verify([good]) == [True]
+    assert eng.verify([good, bad]) == [jed.verify_item(good),
+                                       jed.verify_item(bad)] == [True, False]
+    assert eng.route_launches == {"comb": 1, "generic": 1}
+    assert eng.rung_launches == {4: 2}
+
+
+def test_ed25519_provider_checks_its_engine_and_keys(ed_keyrings):
+    with pytest.raises(ValueError, match="scheme"):
+        Ed25519CryptoProvider(ed_keyrings[1],
+                              engine=TorchVerifyEngine(device="cpu"))
+    ring = Keyring(1, ed_keyrings[1].private_key, {1: b"\xff" * 32})
+    with pytest.raises(ValueError, match="invalid key"):
+        Ed25519CryptoProvider(
+            ring, engine=TorchVerifyEngine(device="cpu", scheme=ed))
+    with pytest.raises(ValueError, match="no kernels"):
+        TorchVerifyEngine(device="cpu", scheme=object())
+    # no engine: the scheme's per-replica CPU verifier, not a fallback
+    prov = Ed25519CryptoProvider(ed_keyrings[2])
+    assert isinstance(prov.engine, HostVerifyEngine)
+    assert prov.engine.scheme is ed
+
+
+def test_ed25519_prewarm_runs_every_requested_rung():
+    eng = TorchVerifyEngine(device="cpu", pad_sizes=(2, 4), scheme=ed)
+    prewarm_verify_engine(eng, sizes=(2,))
+    assert eng.rung_launches == {2: 1}
+    assert eng.route_launches == {"comb": 1, "generic": 0}

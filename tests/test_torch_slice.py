@@ -1,7 +1,8 @@
 """The slice as a whole: the port's n=4 cluster (pipeline depth 4, real
 P-256 votes through one shared dedupe coalescer onto TorchVerifyEngine's
 plain-torch path) against the JAX package's cluster (HostVerifyEngine) on
-the same seeded logical-clock workload.
+the same seeded logical-clock workload; then the same for Ed25519 votes
+(BASELINE configs[3]) on ``TorchVerifyEngine(scheme=ed25519)``.
 
 What is compared: the ordered committed request ids at every replica of
 both clusters, and the chained ledger digest over (payload, metadata) of
@@ -9,7 +10,9 @@ every decision.  The digest covers each decision's metadata, which chains
 the digest of the previous decision's commit signatures, so it is only
 reproducible with deterministic signatures: both clusters sign with RFC
 6979 here (SMARTBFT_DETERMINISTIC_SIGN=1), under which two runs of the JAX
-cluster give the same digest, and so must the port.
+cluster give the same digest, and so must the port.  Ed25519 signing
+(RFC 8032) is deterministic by construction, so its run needs no
+environment variable.
 """
 
 import asyncio
@@ -18,11 +21,13 @@ import dataclasses
 import pytest
 import torch
 
+from smartbft_tpu.crypto import ed25519 as jed
 from smartbft_tpu.crypto import provider as jprov
 from smartbft_tpu.snapshot import CHAIN_SEED, chain_update
 from smartbft_tpu.testing import app as japp
 from smartbft_tpu.testing.network import Network as JNetwork
 from smartbft_tpu.utils.clock import Scheduler as JScheduler
+from smartbft_tpu_torch.crypto import ed25519 as ted
 from smartbft_tpu_torch.crypto import provider as tprov
 from smartbft_tpu_torch.testing import app as tapp
 from smartbft_tpu_torch.testing.network import Network as TNetwork
@@ -135,6 +140,55 @@ def test_port_cluster_verified_on_the_comb_path(runs):
     _, _, engine, co = runs
     assert engine.route_launches["comb"] >= 1
     assert engine.route_launches["generic"] == 0
+    snap = co.fault_snapshot()
+    assert snap["opens"] == 0 and snap["host_fallback_batches"] == 0
+    assert snap["launch_failures"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 (BASELINE configs[3])
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ed_runs(tmp_path_factory):
+    jrings = jprov.Keyring.generate(NODES, seed=b"slice-ed", scheme=jed)
+    jax_run = _run(japp, JNetwork, JScheduler, jrings,
+                   lambda i: jprov.Ed25519CryptoProvider(
+                       jrings[i], engine=jprov.HostVerifyEngine(scheme=jed)),
+                   tmp_path_factory.mktemp("jax-ed"))
+    trings = tprov.Keyring.generate(NODES, seed=b"slice-ed", scheme=ted)
+    engine = tprov.TorchVerifyEngine(device="cpu", scheme=ted)
+    co = tprov.AsyncBatchCoalescer(engine, window=0.002,
+                                   max_batch=2 * 4 * 16384, dedupe=True)
+    torch_run = _run(tapp, TNetwork, TScheduler, trings,
+                     lambda i: tprov.Ed25519CryptoProvider(
+                         trings[i], engine=engine, coalescer=co),
+                     tmp_path_factory.mktemp("torch-ed"))
+    return jax_run, torch_run, engine, co
+
+
+@pytest.mark.parametrize("node", NODES)
+def test_ed25519_same_ordered_request_ids_at_every_replica(ed_runs, node):
+    jax_run, torch_run, _, _ = ed_runs
+    want = [[f"client:req-{k}" for k in range(b * BATCH, (b + 1) * BATCH)]
+            for b in range(DECISIONS)]
+    assert jax_run[node][0] == want
+    assert torch_run[node][0] == jax_run[node][0]
+
+
+@pytest.mark.parametrize("node", NODES)
+def test_ed25519_same_ledger_digest_at_every_replica(ed_runs, node):
+    jax_run, torch_run, _, _ = ed_runs
+    assert torch_run[node][1] == jax_run[node][1] == jax_run[NODES[0]][1]
+
+
+def test_ed25519_cluster_verified_on_the_comb_path(ed_runs):
+    _, _, engine, co = ed_runs
+    assert engine.scheme is ted
+    assert engine.route_launches["comb"] >= 1
+    assert engine.route_launches["generic"] == 0
+    assert engine.stats.sigs_verified > 0
     snap = co.fault_snapshot()
     assert snap["opens"] == 0 and snap["host_fallback_batches"] == 0
     assert snap["launch_failures"] == 0
