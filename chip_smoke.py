@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
-                (four, sm_90a, one nvcc each, all started together); prints
+                (four, sm_90a, and the generic P-256 kernel at 4 threads a
+                signature, one nvcc each, all started together); prints
                 build seconds and ptxas' registers / stack / spills.
 2. comb       — the P-256 comb kernel against its plain-torch version at
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
@@ -49,6 +50,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.
+8. generic_groups — the generic P-256 kernel at each group size (threads
+                a signature): the library the wrapper loads (8) and the
+                build at 4 (``csrc.VARIANTS``), each held to the plain
+                mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
+                128, 512, 2048 and at 16384, with ptxas' registers, stack
+                and spills.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -191,7 +198,7 @@ def phase_build():
     from smartbft_tpu_torch import csrc
 
     t0 = time.perf_counter()
-    report = csrc.build(force=True)
+    report = csrc.build(list(csrc.SOURCES) + list(csrc.VARIANTS), force=True)
     wall = time.perf_counter() - t0
     out = {"phase": "build", "ok": True, "seconds": round(wall, 2),
            "nvcc_flags": " ".join(csrc.NVCC_FLAGS), "kernels": {}}
@@ -770,6 +777,44 @@ def phase_kernels(recs, cells, clock_hz, sms):
     return rows
 
 
+def phase_generic_groups(recs, report):
+    """The generic P-256 kernel at each group size it is built with, held
+    to the plain mask at rung 512 and timed in turns (a, b, b, a) at the
+    rungs 128, 512 and 2048 and at 16384 lanes."""
+    import torch
+
+    from smartbft_tpu_torch import csrc
+    from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+
+    rec = recs["generic"]
+    args16 = rec[max(rec)]["args"]
+    # each build by the group size it reports, the wrapper's first
+    groups = {f"G{ce.group_size(name)}": name
+              for name in ("cuda_ecdsa", *csrc.VARIANTS)}
+    want = ce.ecdsa_verify_plain(*[a[:512] for a in args16])
+    ms = {}
+    order = list(groups)
+    for rung in (128, 512, 2048, 16384):
+        args = [a[:rung] for a in args16]
+        for key in order + order[::-1]:
+            name = groups[key]
+            if rung == 512 and not torch.equal(ce.launch(name, *args), want):
+                fail(f"generic kernel at {key}: mask differs from plain")
+            t = time_ms(lambda: ce.launch(name, *args),
+                        5 if rung == 16384 else 20)
+            ms.setdefault(key, {}).setdefault(str(rung), []).append(
+                round(t, 4))
+    out = {"phase": "generic_groups", "ok": True, "group": order[0],
+           "ms": {g: {r: round(sum(v) / len(v), 4) for r, v in by.items()}
+                  for g, by in ms.items()},
+           "ms_turns": ms,
+           "ptxas": {key: {k: v for k, v in report[name].items()
+                           if k not in ("ptxas", "seconds")}
+                     for key, name in groups.items()}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -812,7 +857,7 @@ def main() -> int:
 
     ids = list(range(1, 65))
     try:
-        timed("build", phase_build)
+        report = timed("build", phase_build)
         rings = Keyring.generate(ids, seed=b"bench-tput")
         keys = [(rings[i].private_key, rings[i].public_keys[i]) for i in ids]
         ed_rings = Keyring.generate(ids, seed=b"bench-tput", scheme=ed25519)
@@ -825,6 +870,7 @@ def main() -> int:
         cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
                  **timed("e2e_ed25519", phase_e2e, wal_root, ed25519)}
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
+        timed("generic_groups", phase_generic_groups, recs, report)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds,

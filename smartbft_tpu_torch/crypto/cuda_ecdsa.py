@@ -9,7 +9,8 @@ RCB15 complete formulas (a = -3), then x(R) mod n == r compared
 projectively.
 
 * :func:`ecdsa_verify` is the wrapper: on CUDA tensors it launches
-  ``csrc/cuda_ecdsa.cu`` (one thread per signature) and counts the launch
+  ``csrc/cuda_ecdsa.cu`` (a group of threads per signature, over the
+  stage program of ``csrc/p256_group.cuh``) and counts the launch
   in :data:`LAUNCHES`; on CPU tensors it runs :func:`ecdsa_verify_plain`.
   It never falls back from one to the other.
 * :func:`ecdsa_verify_plain` repeats the kernel's arithmetic with the
@@ -248,14 +249,23 @@ def ecdsa_verify_plain(e, r, s, qx, qy) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = csrc.load("cuda_ecdsa")
+@functools.lru_cache(maxsize=None)
+def _lib(name: str = "cuda_ecdsa"):
+    """The kernel library the wrapper loads, or a build of the same source
+    with another group size (a name in :data:`csrc.VARIANTS`)."""
+    lib = csrc.load(name)
     vp = ctypes.c_void_p
     lib.smartbft_ecdsa_verify.restype = ctypes.c_int
     lib.smartbft_ecdsa_verify.argtypes = [vp, vp, vp, vp, vp, vp,
                                           ctypes.c_int, vp]
+    lib.smartbft_ecdsa_group.restype = ctypes.c_int
+    lib.smartbft_ecdsa_group.argtypes = []
     return lib
+
+
+def group_size(name: str = "cuda_ecdsa") -> int:
+    """Threads per signature of the kernel library ``name``."""
+    return _lib(name).smartbft_ecdsa_group()
 
 
 def _check_bytes(a, name: str, bsz: int, device) -> None:
@@ -266,8 +276,9 @@ def _check_bytes(a, name: str, bsz: int, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor on {device}")
 
 
-def ecdsa_verify_cuda(e, r, s, qx, qy) -> torch.Tensor:
-    """Launch the generic kernel on (B, 32) uint8 CUDA tensors."""
+def launch(lib: str, e, r, s, qx, qy) -> torch.Tensor:
+    """Check the (B, 32) uint8 CUDA tensors, then launch the kernel of the
+    library ``lib`` (see :func:`_lib`) on them; counts nothing."""
     bsz, dev = e.shape[0], e.device
     for a, name in zip((e, r, s, qx, qy), ("e", "r", "s", "qx", "qy")):
         _check_bytes(a, name, bsz, dev)
@@ -275,11 +286,18 @@ def ecdsa_verify_cuda(e, r, s, qx, qy) -> torch.Tensor:
     if bsz == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().smartbft_ecdsa_verify(
+    rc = _lib(lib).smartbft_ecdsa_verify(
         e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(),
         qy.data_ptr(), out.data_ptr(), bsz, stream)
     csrc.check(rc, "ecdsa_verify")
-    LAUNCHES.add(bsz)
+    return out
+
+
+def ecdsa_verify_cuda(e, r, s, qx, qy) -> torch.Tensor:
+    """Launch the generic kernel on (B, 32) uint8 CUDA tensors."""
+    out = launch("cuda_ecdsa", e, r, s, qx, qy)
+    if out.numel():
+        LAUNCHES.add(out.numel())
     return out
 
 

@@ -25,8 +25,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "cuda")
 #: kernel library name -> its source in this directory
 SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
            "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu"}
+#: builds of a source with another compile-time constant, which no wrapper
+#: loads (``chip_smoke.py`` times them beside the library): the generic
+#: P-256 kernel at 4 threads a signature
+VARIANTS = {"cuda_ecdsa_g4": ("cuda_ecdsa.cu", ("-DECDSA_GROUP=4",))}
 #: every header; an edit to any of them rebuilds every kernel
-HEADERS = ("field256.cuh", "p256_field.cuh", "ed25519_field.cuh")
+HEADERS = ("field256.cuh", "p256_field.cuh", "p256_group.cuh",
+           "ed25519_field.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -52,12 +57,17 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _source(name: str) -> tuple:
+    """(source file, extra nvcc flags) of a library or variant name."""
+    return VARIANTS[name] if name in VARIANTS else (SOURCES[name], ())
+
+
 def _stale(name: str) -> bool:
     try:
         built = os.path.getmtime(_lib_path(name))
     except OSError:
         return True
-    deps = (SOURCES[name],) + HEADERS
+    deps = (_source(name)[0],) + HEADERS
     return any(os.path.getmtime(os.path.join(_DIR, d)) > built for d in deps)
 
 
@@ -79,7 +89,8 @@ def parse_ptxas(text: str) -> dict:
 
 
 def build(names=None, force: bool = False) -> dict:
-    """Compile the named kernel libraries (all by default), in parallel.
+    """Compile the named kernel libraries (all of :data:`SOURCES` by
+    default; :data:`VARIANTS` by name), in parallel.
 
     Returns :data:`build_report`.  ``force`` rebuilds even when the
     library is newer than its sources."""
@@ -94,8 +105,9 @@ def build(names=None, force: bool = False) -> dict:
         t0 = time.perf_counter()
         for name in todo:
             tmp = _lib_path(name) + f".tmp.{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(_DIR, SOURCES[name])]
+            src, flags = _source(name)
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp,
+                   os.path.join(_DIR, src)]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))

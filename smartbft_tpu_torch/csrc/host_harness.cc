@@ -1,12 +1,15 @@
 // Host build of the kernels' headers for the CPU tests: g++ compiles the
 // same field, curve and per-lane verify routines that the CUDA kernels run
-// (p256_field.cuh, ed25519_field.cuh, over field256.cuh), and exposes them
-// through a C interface so Python can hold them against integer
-// arithmetic before any time is spent on the card.
+// (p256_field.cuh, p256_group.cuh, ed25519_field.cuh, over field256.cuh),
+// and exposes them through a C interface so Python can hold them against
+// integer arithmetic before any time is spent on the card.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libkernels_host.so host_harness.cc
+#include <vector>
+
 #include "ed25519_field.cuh"
 #include "p256_field.cuh"
+#include "p256_group.cuh"
 
 using p256::Fe;
 using p256::Pt;
@@ -38,6 +41,30 @@ void put_ept(uint32_t* dst, const ed25519::Ept& p) {
   put(dst + 24, p.t);
 }
 
+template <int G>
+void verify_group(int n, const uint32_t* e, const uint32_t* r,
+                  const uint32_t* s, const uint32_t* qx, const uint32_t* qy,
+                  uint32_t* out) {
+  constexpr int kSigs = p256g::kSigsPerBlock;
+  std::vector<p256g::Shared> sh(kSigs);
+  for (int base = 0; base < n; base += kSigs) {
+    p256g::In in[kSigs];
+    Pt acc[kSigs][G];
+    uint32_t res[kSigs] = {};
+    for (int loc = 0; loc < kSigs; ++loc) {
+      size_t off = 8 * (size_t)(base + loc < n ? base + loc : n - 1);
+      in[loc] = p256g::In{e + off, r + off, s + off, qx + off, qy + off};
+    }
+    for (int id = 0; id < p256g::kStages; ++id)
+      for (int loc = 0; loc < kSigs; ++loc)
+        for (int rank = 0; rank < G; ++rank)
+          res[loc] |= p256g::stage<G>(id, rank, acc[loc][rank], sh[loc],
+                                      in[loc]);
+    for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
+      out[base + loc] = res[loc];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -49,6 +76,14 @@ void p256h_mont_mul(const uint32_t* a, const uint32_t* b, int which,
 
 void p256h_mont_sqr(const uint32_t* a, int which, uint32_t* out) {
   put(out, p256::mont_sqr(get(a), pick(which)));
+}
+
+void p256h_p_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, p256::p_mul(get(a), get(b)));
+}
+
+void p256h_p_sqr(const uint32_t* a, uint32_t* out) {
+  put(out, p256::p_sqr(get(a)));
 }
 
 void p256h_inv_n(const uint32_t* a, uint32_t* out) {
@@ -93,6 +128,22 @@ void p256h_ecdsa_verify(int n, const uint32_t* e, const uint32_t* r,
   for (int i = 0; i < n; ++i)
     out[i] = p256::ecdsa_verify_lane(e + 8 * i, r + 8 * i, s + 8 * i,
                                      qx + 8 * i, qy + 8 * i);
+}
+
+// the group kernel's program (p256_group.cuh) for a group of g = 1, 4 or 8
+// ranks, serialised: per batch of kSigsPerBlock signatures, each stage on
+// every signature and rank in turn, then the next stage.  Signatures past
+// n re-run the last one and store nothing, as the kernel's do.
+void p256h_ecdsa_verify_group(int g, int n, const uint32_t* e,
+                              const uint32_t* r, const uint32_t* s,
+                              const uint32_t* qx, const uint32_t* qy,
+                              uint32_t* out) {
+  switch (g) {
+    case 1: verify_group<1>(n, e, r, s, qx, qy, out); break;
+    case 4: verify_group<4>(n, e, r, s, qx, qy, out); break;
+    case 8: verify_group<8>(n, e, r, s, qx, qy, out); break;
+    default: break;
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -118,6 +118,404 @@ P256_UNROLL
 }
 
 // ---------------------------------------------------------------------------
+// base field: Montgomery products mod p that use p's special form
+// ---------------------------------------------------------------------------
+//
+// p = 2^256 - 2^224 + 2^192 + 2^96 - 1, so -p^-1 mod 2^32 = 1: each
+// reduction round takes q = t[i], and adding q * p * 2^(32 i) clears word i
+// and adds q at word i + 3, q at i + 6 and q * (2^32 - 1) at words i + 7 and
+// i + 8 (lo = -q, hi = q - (q != 0)).  No multiply; the carry out of word
+// i + 8 is kept aside and added once at the end, since words from 9 up are
+// never read as a later q.  Same contract as mont_mul(a, b, mod_p()): a <
+// 2^256, b < p, result fully reduced (< p), R = 2^256.  On the card the
+// carry chains are PTX (mad.lo.cc / madc.hi.cc / addc.cc); the portable
+// form beside them is what g++ builds for the host harness.
+
+#ifdef __CUDA_ARCH__
+
+// t[0..8] += a * bi (t[8] enters as 0); no carry leaves t[8]
+__device__ __forceinline__ void p_row(uint32_t* t, const Fe& a, uint32_t bi) {
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
+}
+
+// one reduction round on t[3..8] with q = t[0]; returns the carry out of
+// t[8]
+__device__ __forceinline__ uint32_t p_redc_round(uint32_t* t) {
+  uint32_t c;
+  asm("{\n\t.reg .u32 lo, hi;\n\t"
+      "sub.cc.u32 lo, 0, %7;\n\t"
+      "subc.u32 hi, %7, 0;\n\t"
+      "add.cc.u32 %0, %0, %7;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, %7;\n\t"
+      "addc.cc.u32 %4, %4, lo;\n\t"
+      "addc.cc.u32 %5, %5, hi;\n\t"
+      "addc.u32 %6, 0, 0;\n\t}"
+      : "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]),
+        "+r"(t[8]), "=r"(c)
+      : "r"(t[0]));
+  return c;
+}
+
+// t[9..16] += c[0..7] (t[16] enters as 0)
+__device__ __forceinline__ void p_add_carries(uint32_t* t, const uint32_t* c) {
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %15, 0;"
+      : "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]),
+        "+r"(t[14]), "+r"(t[15]), "=r"(t[16])
+      : "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
+        "r"(c[6]), "r"(c[7]));
+}
+
+// t[8..16] (< 2p) -> t - p if t >= p, else t
+__device__ __forceinline__ Fe p_final_sub(const uint32_t* t) {
+  Fe d;
+  uint32_t keep;
+  asm("sub.cc.u32 %0, %9, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %1, %10, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %2, %11, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %3, %12, 0;\n\t"
+      "subc.cc.u32 %4, %13, 0;\n\t"
+      "subc.cc.u32 %5, %14, 0;\n\t"
+      "subc.cc.u32 %6, %15, 1;\n\t"
+      "subc.cc.u32 %7, %16, 0xFFFFFFFF;\n\t"
+      "subc.u32 %8, %17, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]),
+        "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(keep)
+      : "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]),
+        "r"(t[13]), "r"(t[14]), "r"(t[15]), "r"(t[16]));
+  // keep = t[16] - borrow: all ones when t < p, else 0
+  Fe out;
+P256_UNROLL
+  for (int j = 0; j < 8; ++j)
+    out.v[j] = (t[8 + j] & keep) | (d.v[j] & ~keep);
+  return out;
+}
+
+// t (17 words, t[16] = 0) = the 512-bit a * b
+__device__ __forceinline__ void p_mul_wide(uint32_t* t, const Fe& a,
+                                           const Fe& b) {
+P256_UNROLL
+  for (int j = 0; j < 17; ++j) t[j] = 0;
+P256_UNROLL
+  for (int i = 0; i < 8; ++i) p_row(t + i, a, b.v[i]);
+}
+
+// t (17 words, t[16] = 0) = the 512-bit a * a: 28 cross products (row i:
+// t[2i+1 .. i+8] += a[i+1..7] * a[i]), doubled by a shift, plus the 8
+// squares on the diagonal
+__device__ __forceinline__ void p_sqr_wide(uint32_t* t, const Fe& a) {
+P256_UNROLL
+  for (int j = 0; j < 17; ++j) t[j] = 0;
+  asm("mad.lo.cc.u32 %0, %9, %8, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %8, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %8, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %8, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %8, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %8, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %8, %6;\n\t"
+      "addc.u32 %7, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %8, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %8, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %8, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %8, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %8, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %8, %6;\n\t"
+      "madc.hi.u32 %7, %15, %8, %7;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+        "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %8, %7, %0;\n\t"
+      "madc.lo.cc.u32 %1, %9, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %7, %2;\n\t"
+      "madc.lo.cc.u32 %3, %11, %7, %3;\n\t"
+      "madc.lo.cc.u32 %4, %12, %7, %4;\n\t"
+      "madc.lo.cc.u32 %5, %13, %7, %5;\n\t"
+      "addc.u32 %6, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %8, %7, %1;\n\t"
+      "madc.hi.cc.u32 %2, %9, %7, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %7, %3;\n\t"
+      "madc.hi.cc.u32 %4, %11, %7, %4;\n\t"
+      "madc.hi.cc.u32 %5, %12, %7, %5;\n\t"
+      "madc.hi.u32 %6, %13, %7, %6;"
+      : "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]),
+        "+r"(t[8]), "+r"(t[9])
+      : "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
+        "r"(a.v[6]), "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %7, %6, %0;\n\t"
+      "madc.lo.cc.u32 %1, %8, %6, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %6, %2;\n\t"
+      "madc.lo.cc.u32 %3, %10, %6, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %6, %4;\n\t"
+      "addc.u32 %5, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %7, %6, %1;\n\t"
+      "madc.hi.cc.u32 %2, %8, %6, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %6, %3;\n\t"
+      "madc.hi.cc.u32 %4, %10, %6, %4;\n\t"
+      "madc.hi.u32 %5, %11, %6, %5;"
+      : "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10])
+      : "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]),
+        "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %6, %5, %0;\n\t"
+      "madc.lo.cc.u32 %1, %7, %5, %1;\n\t"
+      "madc.lo.cc.u32 %2, %8, %5, %2;\n\t"
+      "madc.lo.cc.u32 %3, %9, %5, %3;\n\t"
+      "addc.u32 %4, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %6, %5, %1;\n\t"
+      "madc.hi.cc.u32 %2, %7, %5, %2;\n\t"
+      "madc.hi.cc.u32 %3, %8, %5, %3;\n\t"
+      "madc.hi.u32 %4, %9, %5, %4;"
+      : "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11])
+      : "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %5, %4, %0;\n\t"
+      "madc.lo.cc.u32 %1, %6, %4, %1;\n\t"
+      "madc.lo.cc.u32 %2, %7, %4, %2;\n\t"
+      "addc.u32 %3, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %5, %4, %1;\n\t"
+      "madc.hi.cc.u32 %2, %6, %4, %2;\n\t"
+      "madc.hi.u32 %3, %7, %4, %3;"
+      : "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(a.v[4]), "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %4, %3, %0;\n\t"
+      "madc.lo.cc.u32 %1, %5, %3, %1;\n\t"
+      "addc.u32 %2, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %4, %3, %1;\n\t"
+      "madc.hi.u32 %2, %5, %3, %2;"
+      : "+r"(t[11]), "+r"(t[12]), "+r"(t[13])
+      : "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]));
+  asm("mad.lo.cc.u32 %0, %3, %2, %0;\n\t"
+      "addc.u32 %1, 0, 0;\n\t"
+      "mad.hi.u32 %1, %3, %2, %1;"
+      : "+r"(t[13]), "+r"(t[14])
+      : "r"(a.v[6]), "r"(a.v[7]));
+P256_UNROLL
+  for (int j = 15; j > 0; --j) t[j] = __funnelshift_l(t[j - 1], t[j], 1);
+  t[0] <<= 1;
+  asm("mad.lo.cc.u32 %0, %16, %16, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %16, %1;\n\t"
+      "madc.lo.cc.u32 %2, %17, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %17, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %18, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %18, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %19, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %19, %7;\n\t"
+      "madc.lo.cc.u32 %8, %20, %20, %8;\n\t"
+      "madc.hi.cc.u32 %9, %20, %20, %9;\n\t"
+      "madc.lo.cc.u32 %10, %21, %21, %10;\n\t"
+      "madc.hi.cc.u32 %11, %21, %21, %11;\n\t"
+      "madc.lo.cc.u32 %12, %22, %22, %12;\n\t"
+      "madc.hi.cc.u32 %13, %22, %22, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %23, %14;\n\t"
+      "madc.hi.u32 %15, %23, %23, %15;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]), "+r"(t[14]),
+        "+r"(t[15])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]));
+}
+
+#else  // portable C++: the same steps with 64-bit partial sums
+
+P256_HD void p_mul_wide(uint32_t* t, const Fe& a, const Fe& b) {
+  for (int j = 0; j < 17; ++j) t[j] = 0;
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) {
+      uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[i + j] + c;
+      t[i + j] = (uint32_t)uv;
+      c = uv >> 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+}
+
+P256_HD void p_sqr_wide(uint32_t* t, const Fe& a) {
+  for (int j = 0; j < 17; ++j) t[j] = 0;
+  for (int i = 0; i < 7; ++i) {
+    uint64_t c = 0;
+    for (int j = i + 1; j < 8; ++j) {
+      uint64_t uv = (uint64_t)a.v[j] * a.v[i] + t[i + j] + c;
+      t[i + j] = (uint32_t)uv;
+      c = uv >> 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+  for (int j = 15; j > 0; --j) t[j] = (t[j] << 1) | (t[j - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0;
+  for (int i = 0; i < 8; ++i) {
+    uint64_t sq = (uint64_t)a.v[i] * a.v[i];
+    uint64_t lo = (uint64_t)t[2 * i] + (uint32_t)sq + c;
+    t[2 * i] = (uint32_t)lo;
+    uint64_t hi = (uint64_t)t[2 * i + 1] + (sq >> 32) + (lo >> 32);
+    t[2 * i + 1] = (uint32_t)hi;
+    c = hi >> 32;
+  }
+}
+
+P256_HD uint32_t p_redc_round(uint32_t* t) {
+  const uint32_t q = t[0];
+  const uint32_t lo = 0u - q, hi = q - (q != 0u);
+  const uint32_t add[6] = {q, 0u, 0u, q, lo, hi};
+  uint64_t c = 0;
+  for (int j = 0; j < 6; ++j) {
+    uint64_t s = (uint64_t)t[3 + j] + add[j] + c;
+    t[3 + j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  return (uint32_t)c;
+}
+
+P256_HD void p_add_carries(uint32_t* t, const uint32_t* c) {
+  uint64_t s = 0;
+  for (int j = 0; j < 8; ++j) {
+    s = (uint64_t)t[9 + j] + c[j] + (s >> 32);
+    t[9 + j] = (uint32_t)s;
+  }
+}
+
+P256_HD Fe p_final_sub(const uint32_t* t) {
+  const uint32_t pw[8] = P256_WORDS_P;
+  Fe lo = load_fe(t + 8), d;
+  uint32_t borrow = sub_words(d, lo, pw);
+  return select(t[16] | (borrow ^ 1u), d, lo);
+}
+
+#endif  // __CUDA_ARCH__
+
+// t (17 words, a product below p * 2^256) -> t * 2^-256 mod p
+P256_HD Fe p_redc(uint32_t* t) {
+  uint32_t c[8];
+P256_UNROLL
+  for (int i = 0; i < 8; ++i) c[i] = p_redc_round(t + i);
+  p_add_carries(t, c);
+  return p_final_sub(t);
+}
+
+// a * b * 2^-256 mod p: 64 word products, then the shift-and-add reduction
+P256_HD Fe p_mul(const Fe& a, const Fe& b) {
+  uint32_t t[17];
+  p_mul_wide(t, a, b);
+  return p_redc(t);
+}
+
+// a * a * 2^-256 mod p: 36 word products (28 cross, doubled, + 8 squares)
+P256_HD Fe p_sqr(const Fe& a) {
+  uint32_t t[17];
+  p_sqr_wide(t, a);
+  return p_redc(t);
+}
+
+#ifdef __CUDA_ARCH__
+
+// a + b mod p, a, b < p: one carry chain, then a - p chain, then a select
+__device__ __forceinline__ Fe p_add(const Fe& a, const Fe& b) {
+  Fe s, d;
+  uint32_t keep;
+  asm("{\n\t.reg .u32 cy;\n\t"
+      "add.cc.u32 %0, %17, %25;\n\t"
+      "addc.cc.u32 %1, %18, %26;\n\t"
+      "addc.cc.u32 %2, %19, %27;\n\t"
+      "addc.cc.u32 %3, %20, %28;\n\t"
+      "addc.cc.u32 %4, %21, %29;\n\t"
+      "addc.cc.u32 %5, %22, %30;\n\t"
+      "addc.cc.u32 %6, %23, %31;\n\t"
+      "addc.cc.u32 %7, %24, %32;\n\t"
+      "addc.u32 cy, 0, 0;\n\t"
+      "sub.cc.u32 %8, %0, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %9, %1, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %10, %2, 0xFFFFFFFF;\n\t"
+      "subc.cc.u32 %11, %3, 0;\n\t"
+      "subc.cc.u32 %12, %4, 0;\n\t"
+      "subc.cc.u32 %13, %5, 0;\n\t"
+      "subc.cc.u32 %14, %6, 1;\n\t"
+      "subc.cc.u32 %15, %7, 0xFFFFFFFF;\n\t"
+      "subc.u32 %16, cy, 0;\n\t"
+      "}"
+      : "=r"(s.v[0]), "=r"(s.v[1]), "=r"(s.v[2]), "=r"(s.v[3]), "=r"(s.v[4]),
+        "=r"(s.v[5]), "=r"(s.v[6]), "=r"(s.v[7]), "=r"(d.v[0]), "=r"(d.v[1]),
+        "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]),
+        "=r"(d.v[7]), "=r"(keep)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]),
+        "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
+  // keep = carry - borrow: all ones when a + b < p, else 0
+  Fe out;
+P256_UNROLL
+  for (int j = 0; j < 8; ++j) out.v[j] = (s.v[j] & keep) | (d.v[j] & ~keep);
+  return out;
+}
+
+// a - b mod p, a, b < p: a - b, then p added back under the borrow's mask
+__device__ __forceinline__ Fe p_sub(const Fe& a, const Fe& b) {
+  Fe out;
+  asm("{\n\t.reg .u32 w0, w1, w2, w3, w4, w5, w6, w7, mk, mk1;\n\t"
+      "sub.cc.u32 w0, %8, %16;\n\t"
+      "subc.cc.u32 w1, %9, %17;\n\t"
+      "subc.cc.u32 w2, %10, %18;\n\t"
+      "subc.cc.u32 w3, %11, %19;\n\t"
+      "subc.cc.u32 w4, %12, %20;\n\t"
+      "subc.cc.u32 w5, %13, %21;\n\t"
+      "subc.cc.u32 w6, %14, %22;\n\t"
+      "subc.cc.u32 w7, %15, %23;\n\t"
+      "subc.u32 mk, 0, 0;\n\t"
+      "and.b32 mk1, mk, 1;\n\t"
+      "add.cc.u32 %0, w0, mk;\n\t"
+      "addc.cc.u32 %1, w1, mk;\n\t"
+      "addc.cc.u32 %2, w2, mk;\n\t"
+      "addc.cc.u32 %3, w3, 0;\n\t"
+      "addc.cc.u32 %4, w4, 0;\n\t"
+      "addc.cc.u32 %5, w5, 0;\n\t"
+      "addc.cc.u32 %6, w6, mk1;\n\t"
+      "addc.u32 %7, w7, mk;\n\t"
+      "}"
+      : "=r"(out.v[0]), "=r"(out.v[1]), "=r"(out.v[2]), "=r"(out.v[3]),
+        "=r"(out.v[4]), "=r"(out.v[5]), "=r"(out.v[6]), "=r"(out.v[7])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]),
+        "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
+  return out;
+}
+
+#else
+
+P256_HD Fe p_add(const Fe& a, const Fe& b) { return mod_add(a, b, mod_p()); }
+P256_HD Fe p_sub(const Fe& a, const Fe& b) { return mod_sub(a, b, mod_p()); }
+
+#endif  // __CUDA_ARCH__
+
+// ---------------------------------------------------------------------------
 // curve: homogeneous projective (X : Y : Z), Montgomery coordinates,
 // Renes-Costello-Batina 2015 complete formulas for a = -3
 // ---------------------------------------------------------------------------
@@ -269,7 +667,9 @@ P256_NO_UNROLL
 
 // ---------------------------------------------------------------------------
 // generic verify (one lane): on-curve check, joint table {iG + jQ},
-// 128-digit 2-bit Strauss-Shamir scan
+// 128-digit 2-bit Strauss-Shamir scan.  The kernel runs the group program
+// of p256_group.cuh instead; the host harness keeps this one-thread lane
+// as a second reference for it.
 // ---------------------------------------------------------------------------
 
 P256_HD uint32_t two_bit_digit(const Fe& u, int k) {

@@ -45,6 +45,29 @@ def test_sources_and_flags_target_hopper():
                     assert line.split('"')[1] in csrc.HEADERS, (name, line)
 
 
+def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
+    """A variant (the generic kernel at another group size) is its
+    source compiled with one more -D flag, into a library of its own."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" > "{tmp_path}/args"\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'touch "$2"\n'
+        'echo "ptxas info    : Used 96 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(csrc, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(csrc, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(csrc, "build_report", {})
+    report = csrc.build(names=["cuda_ecdsa_g4"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DECDSA_GROUP=4" in args
+    assert args[-1].endswith("cuda_ecdsa.cu")
+    assert report["cuda_ecdsa_g4"]["registers"] == 96
+    assert (tmp_path / "build" / "libcuda_ecdsa_g4.so").exists()
+    assert set(csrc.VARIANTS) == {"cuda_ecdsa_g4"}
+
+
 def test_launch_counter_is_thread_safe():
     c = csrc.LaunchCounter("k")
 

@@ -66,10 +66,15 @@ def test_comb_kernel_matches_plain(cuda, bsz):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bsz", [1, 130])
+@pytest.mark.parametrize("bsz", [1, 33, 130, 509])
 def test_generic_kernel_matches_plain(cuda, bsz):
+    """Ragged batches too: the kernel verifies 16 signatures a block, and
+    the signatures past the batch must neither store nor stall a group."""
     keys = [p256.keygen(b"gpu-g-%d" % i) for i in range(4)]
     items = _items(max(bsz, 4), keys, "gen")[:bsz]
+    if bsz > 5:
+        m, r, s, (x, y) = items[5]
+        items[5] = (m, r, s, (x, (y + 1) % p256.P))  # off-curve key
     arrays = [torch.from_numpy(a).to(cuda) for a in p256.verify_bytes(items)]
     before = ce.LAUNCHES.launches
     got = ce.ecdsa_verify(*arrays)

@@ -72,6 +72,33 @@ def test_field_mul_sqr_add_sub(lib, which, mod):
         assert _i(out) == (x - y) % mod
 
 
+#: a < 2^256 for p_mul's first factor, the edges the reduction must meet
+P_EDGES = [0, 1, p256.P - 1, R - 1, R % p256.P]
+
+
+@pytest.mark.parametrize("case", ["seeded", "edges"])
+def test_special_form_product_mod_p(lib, case):
+    """p_mul / p_sqr (the shift-and-add reduction mod p) against Python
+    integers: a * b * 2^-256 mod p, fully reduced, for any a < 2^256 and
+    b < p (p_sqr: a < p)."""
+    rinv = pow(R, -1, p256.P)
+    if case == "seeded":
+        rng = np.random.default_rng(11)
+        xs = [int.from_bytes(rng.bytes(32), "little") for _ in range(200)]
+        ys = [int.from_bytes(rng.bytes(32), "little") % p256.P
+              for _ in range(200)]
+        pairs = list(zip(xs, ys))
+    else:
+        pairs = [(x, y) for x in P_EDGES for y in P_EDGES if y < p256.P]
+    out = np.zeros(8, np.uint32)
+    for x, y in pairs:
+        lib.p256h_p_mul(_ptr(_w(x)), _ptr(_w(y)), _ptr(out))
+        assert _i(out) == x * y * rinv % p256.P, (x, y)
+        if x < p256.P:
+            lib.p256h_p_sqr(_ptr(_w(x)), _ptr(out))
+            assert _i(out) == x * x * rinv % p256.P, x
+
+
 def test_inversion_mod_n(lib):
     out = np.zeros(8, np.uint32)
     for x in _ints(3, 10, p256.N)[:-3] + [1, p256.N - 1]:
@@ -139,14 +166,58 @@ def test_comb_verify_of_eight_lanes(lib):
     assert expect == [1, 1, 1, 0, 1, 0, 0, 0]
 
 
-def test_generic_verify_lanes(lib):
-    items = _lanes()[:4]
+def _run_generic(lib, entry, arrays, n):
+    """The one-thread lane loop (entry 0) or the group kernel's program
+    serialised for a group of ``entry`` ranks; (n,) verdicts."""
+    out = np.zeros(n, np.uint32)
+    ptrs = [_ptr(a) for a in arrays]
+    if entry == 0:
+        lib.p256h_ecdsa_verify(n, *ptrs, _ptr(out))
+    else:
+        lib.p256h_ecdsa_verify_group(entry, n, *ptrs, _ptr(out))
+    return out.tolist()
+
+
+GENERIC_ENTRIES = [pytest.param(0, id="lane"), pytest.param(1, id="group1"),
+                   pytest.param(4, id="group4"), pytest.param(8, id="group8")]
+
+
+@pytest.mark.parametrize("entry", GENERIC_ENTRIES)
+def test_generic_verify_lanes(lib, entry):
+    """Nine lanes (not a multiple of the group size): valid, corrupted r,
+    r = 0, s >= n and an off-curve key.  The group program agrees with
+    the one-thread lane and with ``verify_item``."""
+    items = _lanes()
     m, r, s, (x, y) = items[0]
     items.append((m, r, s, (x, (y + 1) % p256.P)))  # off-curve key
     arrays = p256.verify_bytes(items)
-    out = np.zeros(len(items), np.uint32)
-    lib.p256h_ecdsa_verify(len(items), *[_ptr(a) for a in arrays], _ptr(out))
-    assert out.tolist() == [int(p256.verify_item(it)) for it in items]
+    expect = [int(p256.verify_item(it)) for it in items]
+    assert expect == [1, 1, 1, 0, 1, 0, 0, 1, 0]
+    assert _run_generic(lib, entry, arrays, len(items)) == expect
+    if entry:
+        assert _run_generic(lib, 0, arrays, len(items)) == expect
+
+
+@pytest.mark.parametrize("group", [4, 8])
+def test_group_program_over_a_ragged_second_block(lib, group):
+    """21 signatures: one full block of 16 and a ragged one of 5, whose
+    11 idle slots re-run the last signature and must store nothing."""
+    keys = [p256.keygen(b"hg-%d" % i) for i in range(3)]
+    items = []
+    for i in range(21):
+        d, pub = keys[i % 3]
+        msg = b"g-%d" % i
+        items.append((msg, *p256.sign(d, msg), pub))
+    m, r, s, pub = items[17]
+    items[17] = (m, r, (s + 1) % p256.N, pub)
+    arrays = p256.verify_bytes(items)
+    expect = [int(p256.verify_item(it)) for it in items]
+    assert expect.count(0) == 1
+    out = np.full(24, 7, np.uint32)
+    lib.p256h_ecdsa_verify_group(group, 21, *[_ptr(a) for a in arrays],
+                                 _ptr(out))
+    assert out[:21].tolist() == expect
+    assert out[21:].tolist() == [7, 7, 7]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,237 @@
+"""The PTX carry chains of ``csrc/p256_field.cuh`` on a CPU.
+
+The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub`` is inline
+PTX that only nvcc builds, so the host harness (which compiles the
+portable twin) never runs it.  Here the ``asm`` statements are read out
+of the header as they are, each run on a small emulator of the PTX
+integer instructions they use (``mad``/``madc`` with ``.lo``/``.hi`` and
+the carry flag, ``add``/``addc``, ``sub``/``subc``, ``and``), with the C++
+around them mirrored in Python, and the results held to Python integers.
+"""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+from smartbft_tpu_torch.crypto import p256
+
+HEADER = (pathlib.Path(__file__).resolve().parent.parent / "smartbft_tpu_torch"
+          / "csrc" / "p256_field.cuh")
+M32 = (1 << 32) - 1
+R = 1 << 256
+P = p256.P
+
+
+# ---------------------------------------------------------------------------
+# the asm statements of the header's device section, by function
+# ---------------------------------------------------------------------------
+
+
+def _device_asm():
+    text = HEADER.read_text()
+    dev = text[text.index("#ifdef __CUDA_ARCH__"):]
+    blocks = {}
+    for m in re.finditer(r"__device__ __forceinline__ \w+ (\w+)\(", dev):
+        body_start = m.end()
+        nxt = re.search(r"__device__ __forceinline__ \w+ \w+\(|#else",
+                        dev[body_start:])
+        body = dev[body_start:body_start + nxt.start()] if nxt else \
+            dev[body_start:]
+        blocks[m.group(1)] = [_parse_asm(a) for a in
+                              re.findall(r"asm\((.*?)\);", body, re.S)]
+    return blocks
+
+
+def _parse_asm(src):
+    template, out_part, in_part = src.split(":")
+    code = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
+    code = code.replace("\\n", "\n").replace("\\t", " ")
+    outs = re.findall(r'"([+=])r"\(([^)]*)\)', out_part)
+    ins = re.findall(r'"r"\(([^)]*)\)', in_part)
+    return code, outs, ins
+
+
+ASM = _device_asm()
+
+
+def test_the_header_has_the_chains_this_file_runs():
+    assert {name: len(v) for name, v in ASM.items() if v} == {
+        "p_row": 1, "p_redc_round": 1, "p_add_carries": 1,
+        "p_final_sub": 1, "p_sqr_wide": 8, "p_add": 1, "p_sub": 1}
+
+
+# ---------------------------------------------------------------------------
+# the emulator
+# ---------------------------------------------------------------------------
+
+
+def _run(block, env):
+    """Run one asm statement: ``env`` maps its operand expressions to
+    values; returns the values of the output operands by expression."""
+    code, outs, ins = block
+    ops = [e for _, e in outs] + ins
+    regs = {f"%{k}": env[e] for k, e in enumerate(ops)
+            if k >= len(outs) or outs[k][0] == "+"}
+    cf = None
+
+    def val(x):
+        x = x.strip()
+        if x in regs:
+            return regs[x]
+        return int(x, 0)
+
+    for line in code.replace("{", "\n").replace("}", "\n").split(";"):
+        line = line.strip()
+        if not line or line.startswith(".reg"):
+            continue
+        op, args = line.split(None, 1)
+        d, *src = [a.strip() for a in args.split(",")]
+        parts = op.split(".")
+        base, has_cc = parts[0], "cc" in parts
+        cin = 0
+        if base in ("madc", "addc", "subc"):
+            assert cf is not None, f"{line}: no carry flag was set"
+            cin = cf
+        if base in ("mad", "madc"):
+            x, y, z = map(val, src)
+            prod = x * y
+            res = (prod & M32 if "lo" in parts else prod >> 32) + z + cin
+            regs[d], carry = res & M32, res >> 32
+        elif base in ("add", "addc"):
+            res = val(src[0]) + val(src[1]) + cin
+            regs[d], carry = res & M32, res >> 32
+        elif base in ("sub", "subc"):
+            res = val(src[0]) - val(src[1]) - cin
+            regs[d], carry = res & M32, int(res < 0)
+        elif base == "and":
+            regs[d], carry = val(src[0]) & val(src[1]), None
+        else:
+            raise AssertionError(f"unknown PTX op {op}")
+        cf = carry if has_cc else None
+    return {e: regs[f"%{k}"] for k, (_, e) in enumerate(outs)}
+
+
+def _words(x, n=8):
+    return [(x >> (32 * j)) & M32 for j in range(n)]
+
+
+def _num(ws):
+    return sum(w << (32 * j) for j, w in enumerate(ws))
+
+
+def _env_arrays(**arrays):
+    """Operand expressions (``t[3]``, ``a.v[0]``, ``bi``) -> values, with
+    ``t`` seen from an offset as the C++ passes ``t + i``."""
+    env = {}
+    for name, (vals, off) in arrays.items():
+        if isinstance(vals, int):
+            env[name] = vals
+            continue
+        for j in range(len(vals) - off):
+            env[f"{name}[{j}]"] = env[f"{name}.v[{j}]"] = vals[off + j]
+    return env
+
+
+def _store(res, name, arr, off=0):
+    for expr, v in res.items():
+        m = re.fullmatch(rf"{name}(?:\.v)?\[(\d+)\]", expr)
+        if m:
+            arr[off + int(m.group(1))] = v
+
+
+# ---------------------------------------------------------------------------
+# the C++ around the chains, mirrored
+# ---------------------------------------------------------------------------
+
+
+def mul_wide(a, b):
+    t = [0] * 17
+    for i in range(8):
+        res = _run(ASM["p_row"][0], _env_arrays(t=(t, i), a=(a, 0),
+                                                bi=(b[i], 0)))
+        _store(res, "t", t, i)
+    return t
+
+
+def sqr_wide(a):
+    t = [0] * 17
+    for block in ASM["p_sqr_wide"][:7]:
+        _store(_run(block, _env_arrays(t=(t, 0), a=(a, 0))), "t", t)
+    for j in range(15, 0, -1):  # __funnelshift_l(t[j-1], t[j], 1)
+        t[j] = ((t[j] << 1) | (t[j - 1] >> 31)) & M32
+    t[0] = (t[0] << 1) & M32
+    _store(_run(ASM["p_sqr_wide"][7], _env_arrays(t=(t, 0), a=(a, 0))),
+           "t", t)
+    return t
+
+
+def redc(t):
+    t = list(t)
+    c = []
+    for i in range(8):
+        env = _env_arrays(t=(t, i))
+        res = _run(ASM["p_redc_round"][0], env)
+        c.append(res.pop("c"))
+        _store(res, "t", t, i)
+    _store(_run(ASM["p_add_carries"][0], _env_arrays(t=(t, 0), c=(c, 0))),
+           "t", t)
+    res = _run(ASM["p_final_sub"][0], _env_arrays(t=(t, 0)))
+    keep, d = res.pop("keep"), [0] * 8
+    _store(res, "d", d)
+    assert keep in (0, M32)
+    return [(t[8 + j] & keep) | (d[j] & ~keep & M32) for j in range(8)]
+
+
+def add(a, b):
+    res = _run(ASM["p_add"][0], _env_arrays(a=(a, 0), b=(b, 0)))
+    keep, s, d = res.pop("keep"), [0] * 8, [0] * 8
+    _store(res, "s", s)
+    _store(res, "d", d)
+    assert keep in (0, M32)
+    return [(s[j] & keep) | (d[j] & ~keep & M32) for j in range(8)]
+
+
+def sub(a, b):
+    out = [0] * 8
+    _store(_run(ASM["p_sub"][0], _env_arrays(a=(a, 0), b=(b, 0))), "out",
+           out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the checks
+# ---------------------------------------------------------------------------
+
+
+def _cases(kind):
+    if kind == "edges":
+        xs = [0, 1, P - 1, R - 1, R % P, 2**255]
+        return [(x, y) for x in xs for y in xs if y < P]
+    rng = np.random.default_rng(23)
+    return [(int.from_bytes(rng.bytes(32), "little"),
+             int.from_bytes(rng.bytes(32), "little") % P)
+            for _ in range(60)]
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_product_and_square_mod_p(kind):
+    rinv = pow(R, -1, P)
+    for x, y in _cases(kind):
+        t = mul_wide(_words(x), _words(y))
+        assert _num(t) == x * y
+        assert _num(redc(t)) == x * y * rinv % P, (x, y)
+        if x < P:
+            t = sqr_wide(_words(x))
+            assert _num(t) == x * x
+            assert _num(redc(t)) == x * x * rinv % P, x
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_add_and_sub_mod_p(kind):
+    for x, y in _cases(kind):
+        x %= P
+        assert _num(add(_words(x), _words(y))) == (x + y) % P, (x, y)
+        assert _num(sub(_words(x), _words(y))) == (x - y) % P, (x, y)
+        assert _num(sub(_words(y), _words(x))) == (y - x) % P, (x, y)
