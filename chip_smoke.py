@@ -9,8 +9,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
                 (four, sm_90a, and the generic P-256 kernel at 4 threads a
-                signature, one nvcc each, all started together); prints
-                build seconds and ptxas' registers / stack / spills.
+                signature and the generic Ed25519 one at 2, one nvcc each,
+                all started together); prints build seconds and ptxas'
+                registers / stack / spills.
 2. comb       — the P-256 comb kernel against its plain-torch version at
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
                 a seeded rejection matrix (corrupted r, r = 0, s >= n,
@@ -56,6 +57,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
+9. ed_generic_groups — the same for the generic Ed25519 kernel: the
+                library (4 threads a signature) and the build at 2.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -777,34 +780,36 @@ def phase_kernels(recs, cells, clock_hz, sms):
     return rows
 
 
-def phase_generic_groups(recs, report):
-    """The generic P-256 kernel at each group size it is built with, held
-    to the plain mask at rung 512 and timed in turns (a, b, b, a) at the
-    rungs 128, 512 and 2048 and at 16384 lanes."""
+def group_phase(phase, lib, mod, plain, rec, report):
+    """A generic kernel at each group size it is built with (threads a
+    signature): the library ``lib`` that the wrapper loads and its builds
+    in ``csrc.VARIANTS``, each held to the plain mask at rung 512 and timed
+    in turns (a, b, b, a) at the rungs 128, 512 and 2048 and at 16384
+    lanes.  ``mod`` is the kernel's module (``group_size``, ``launch``),
+    ``rec`` its kernel phase's records by batch size."""
     import torch
 
     from smartbft_tpu_torch import csrc
-    from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
 
-    rec = recs["generic"]
     args16 = rec[max(rec)]["args"]
+    builds = [lib] + [name for name, (src, _) in csrc.VARIANTS.items()
+                      if src == csrc.SOURCES[lib]]
     # each build by the group size it reports, the wrapper's first
-    groups = {f"G{ce.group_size(name)}": name
-              for name in ("cuda_ecdsa", *csrc.VARIANTS)}
-    want = ce.ecdsa_verify_plain(*[a[:512] for a in args16])
+    groups = {f"G{mod.group_size(name)}": name for name in builds}
+    want = plain(*[a[:512] for a in args16])
     ms = {}
     order = list(groups)
     for rung in (128, 512, 2048, 16384):
         args = [a[:rung] for a in args16]
         for key in order + order[::-1]:
             name = groups[key]
-            if rung == 512 and not torch.equal(ce.launch(name, *args), want):
-                fail(f"generic kernel at {key}: mask differs from plain")
-            t = time_ms(lambda: ce.launch(name, *args),
+            if rung == 512 and not torch.equal(mod.launch(name, *args), want):
+                fail(f"{phase} at {key}: mask differs from plain")
+            t = time_ms(lambda: mod.launch(name, *args),
                         5 if rung == 16384 else 20)
             ms.setdefault(key, {}).setdefault(str(rung), []).append(
                 round(t, 4))
-    out = {"phase": "generic_groups", "ok": True, "group": order[0],
+    out = {"phase": phase, "ok": True, "group": order[0],
            "ms": {g: {r: round(sum(v) / len(v), 4) for r, v in by.items()}
                   for g, by in ms.items()},
            "ms_turns": ms,
@@ -870,7 +875,14 @@ def main() -> int:
         cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
                  **timed("e2e_ed25519", phase_e2e, wal_root, ed25519)}
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
-        timed("generic_groups", phase_generic_groups, recs, report)
+        from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+        from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+
+        timed("generic_groups", group_phase, "generic_groups", "cuda_ecdsa",
+              ce, ce.ecdsa_verify_plain, recs["generic"], report)
+        timed("ed_generic_groups", group_phase, "ed_generic_groups",
+              "cuda_eddsa", cgd, cgd.eddsa_verify_plain, recs["ed_generic"],
+              report)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds,

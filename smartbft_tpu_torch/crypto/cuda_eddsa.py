@@ -16,8 +16,9 @@ digit), then a projective comparison with R.
   follow the JAX package's ``point_add``/``point_double`` line for line;
   :mod:`.cuda_ed25519` (the comb kernel's plain version) imports them.
 * :func:`eddsa_verify` is the wrapper: on CUDA tensors it launches
-  ``csrc/cuda_eddsa.cu`` (one thread per signature) and counts the launch
-  in :data:`LAUNCHES`; on CPU tensors it runs :func:`eddsa_verify_plain`.
+  ``csrc/cuda_eddsa.cu`` (a group of 4 threads per signature, over the
+  stage program of ``csrc/ed25519_group.cuh``) and counts the launch in
+  :data:`LAUNCHES`; on CPU tensors it runs :func:`eddsa_verify_plain`.
   It never falls back from one to the other.
 
 Inputs are (B, 32) uint8 little-endian values (:func:`ed25519.verify_inputs`),
@@ -174,13 +175,22 @@ def eddsa_verify_plain(s, h, rx, ry, ax, ay, ok) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = csrc.load("cuda_eddsa")
+@functools.lru_cache(maxsize=None)
+def _lib(name: str = "cuda_eddsa"):
+    """The kernel library the wrapper loads, or a build of the same source
+    with another group size (a name in :data:`csrc.VARIANTS`)."""
+    lib = csrc.load(name)
     vp = ctypes.c_void_p
     lib.smartbft_eddsa_verify.restype = ctypes.c_int
     lib.smartbft_eddsa_verify.argtypes = [vp] * 8 + [ctypes.c_int, vp]
+    lib.smartbft_eddsa_group.restype = ctypes.c_int
+    lib.smartbft_eddsa_group.argtypes = []
     return lib
+
+
+def group_size(name: str = "cuda_eddsa") -> int:
+    """Threads per signature of the kernel library ``name``."""
+    return _lib(name).smartbft_eddsa_group()
 
 
 def check_lanes(a, name: str, bsz: int, device) -> None:
@@ -191,9 +201,9 @@ def check_lanes(a, name: str, bsz: int, device) -> None:
                          f"{device}, got {tuple(a.shape)} {a.dtype}")
 
 
-def eddsa_verify_cuda(s, h, rx, ry, ax, ay, ok) -> torch.Tensor:
-    """Launch the generic kernel on CUDA tensors (shapes as the plain
-    one)."""
+def launch(lib: str, s, h, rx, ry, ax, ay, ok) -> torch.Tensor:
+    """Check the CUDA tensors (shapes as the plain version's), then launch
+    the kernel of the library ``lib`` (see :func:`_lib`); counts nothing."""
     bsz, dev = s.shape[0], s.device
     names = ("s", "h", "rx", "ry", "ax", "ay")
     for a, name in zip((s, h, rx, ry, ax, ay), names):
@@ -203,12 +213,20 @@ def eddsa_verify_cuda(s, h, rx, ry, ax, ay, ok) -> torch.Tensor:
     if bsz == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().smartbft_eddsa_verify(
+    rc = _lib(lib).smartbft_eddsa_verify(
         s.data_ptr(), h.data_ptr(), rx.data_ptr(), ry.data_ptr(),
         ax.data_ptr(), ay.data_ptr(), ok.data_ptr(), out.data_ptr(), bsz,
         stream)
     csrc.check(rc, "eddsa_verify")
-    LAUNCHES.add(bsz)
+    return out
+
+
+def eddsa_verify_cuda(s, h, rx, ry, ax, ay, ok) -> torch.Tensor:
+    """Launch the generic kernel on CUDA tensors (shapes as the plain
+    one)."""
+    out = launch("cuda_eddsa", s, h, rx, ry, ax, ay, ok)
+    if out.numel():
+        LAUNCHES.add(out.numel())
     return out
 
 

@@ -1,6 +1,7 @@
 // Host build of the kernels' headers for the CPU tests: g++ compiles the
 // same field, curve and per-lane verify routines that the CUDA kernels run
-// (p256_field.cuh, p256_group.cuh, ed25519_field.cuh, over field256.cuh),
+// (p256_field.cuh, p256_group.cuh, ed25519_field.cuh, ed25519_group.cuh,
+// over field256.cuh),
 // and exposes them through a C interface so Python can hold them against
 // integer arithmetic before any time is spent on the card.
 //
@@ -8,6 +9,7 @@
 #include <vector>
 
 #include "ed25519_field.cuh"
+#include "ed25519_group.cuh"
 #include "p256_field.cuh"
 #include "p256_group.cuh"
 
@@ -60,6 +62,31 @@ void verify_group(int n, const uint32_t* e, const uint32_t* r,
         for (int rank = 0; rank < G; ++rank)
           res[loc] |= p256g::stage<G>(id, rank, acc[loc][rank], sh[loc],
                                       in[loc]);
+    for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
+      out[base + loc] = res[loc];
+  }
+}
+
+template <int G>
+void ed_verify_group(int n, const uint32_t* s, const uint32_t* h,
+                     const uint32_t* rx, const uint32_t* ry,
+                     const uint32_t* ax, const uint32_t* ay,
+                     const int32_t* ok, uint32_t* out) {
+  constexpr int kSigs = edg::kSigsPerBlock;
+  std::vector<edg::Shared> sh(kSigs);
+  for (int base = 0; base < n; base += kSigs) {
+    edg::In in[kSigs];
+    uint32_t res[kSigs] = {};
+    for (int loc = 0; loc < kSigs; ++loc) {
+      int src = base + loc < n ? base + loc : n - 1;
+      size_t off = 8 * (size_t)src;
+      in[loc] = edg::In{s + off,  h + off,  rx + off, ry + off,
+                        ax + off, ay + off, ok[src]};
+    }
+    for (int id = 0; id < edg::kStages; ++id)
+      for (int loc = 0; loc < kSigs; ++loc)
+        for (int rank = 0; rank < G; ++rank)
+          res[loc] |= edg::stage<G>(id, rank, sh[loc], in[loc]);
     for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
       out[base + loc] = res[loc];
   }
@@ -217,6 +244,43 @@ void edh_eddsa_verify(int n, const uint32_t* s, const uint32_t* h,
     out[i] = ed25519::eddsa_verify_lane(s + 8 * i, h + 8 * i, rx + 8 * i,
                                         ry + 8 * i, ax + 8 * i, ay + 8 * i,
                                         ok[i]);
+}
+
+// the fold field of ed25519_group.cuh (plain form mod 2^255 - 19; the
+// results may be only partly reduced, e_canon makes them canonical)
+void edh_e_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, edg::e_mul(get(a), get(b)));
+}
+
+void edh_e_sqr(const uint32_t* a, uint32_t* out) {
+  put(out, edg::e_sqr(get(a)));
+}
+
+void edh_e_add(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, edg::e_add(get(a), get(b)));
+}
+
+void edh_e_sub(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, edg::e_sub(get(a), get(b)));
+}
+
+void edh_e_canon(const uint32_t* a, uint32_t* out) {
+  put(out, edg::e_canon(get(a)));
+}
+
+// the group kernel's program (ed25519_group.cuh) for a group of g = 1, 2
+// or 4 ranks, serialised as p256h_ecdsa_verify_group's
+void edh_eddsa_verify_group(int g, int n, const uint32_t* s,
+                            const uint32_t* h, const uint32_t* rx,
+                            const uint32_t* ry, const uint32_t* ax,
+                            const uint32_t* ay, const int32_t* ok,
+                            uint32_t* out) {
+  switch (g) {
+    case 1: ed_verify_group<1>(n, s, h, rx, ry, ax, ay, ok, out); break;
+    case 2: ed_verify_group<2>(n, s, h, rx, ry, ax, ay, ok, out); break;
+    case 4: ed_verify_group<4>(n, s, h, rx, ry, ax, ay, ok, out); break;
+    default: break;
+  }
 }
 
 }  // extern "C"

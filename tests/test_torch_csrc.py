@@ -65,7 +65,10 @@ def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
     assert args[-1].endswith("cuda_ecdsa.cu")
     assert report["cuda_ecdsa_g4"]["registers"] == 96
     assert (tmp_path / "build" / "libcuda_ecdsa_g4.so").exists()
-    assert set(csrc.VARIANTS) == {"cuda_ecdsa_g4"}
+    assert set(csrc.VARIANTS) == {"cuda_ecdsa_g4", "cuda_eddsa_g2"}
+    csrc.build(names=["cuda_eddsa_g2"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DEDDSA_GROUP=2" in args and args[-1].endswith("cuda_eddsa.cu")
 
 
 def test_launch_counter_is_thread_safe():

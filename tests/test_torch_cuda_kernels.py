@@ -144,8 +144,10 @@ def test_ed_comb_kernel_matches_plain(cuda, bsz):
     assert got.cpu().tolist()[:8] == expect
 
 
-@pytest.mark.parametrize("bsz", [1, 130])
+@pytest.mark.parametrize("bsz", [1, 17, 130, 509])
 def test_ed_generic_kernel_matches_plain(cuda, bsz):
+    """Ragged batches too: the kernel verifies 16 signatures a block, and
+    the signatures past the batch must neither store nor stall a group."""
     keys = [ed.keygen(b"gpu-edg-%d" % i) for i in range(3)]
     items = _ed_items(max(bsz, 8), keys, "edg")[:bsz]
     if bsz > 5:
@@ -155,6 +157,21 @@ def test_ed_generic_kernel_matches_plain(cuda, bsz):
     before = cgd.LAUNCHES.launches
     got = cgd.eddsa_verify(*arrays)
     assert cgd.LAUNCHES.launches == before + 1
+    assert torch.equal(got, cgd.eddsa_verify_plain(*arrays))
+    assert got.cpu().tolist() == [int(ed.verify_item(it)) for it in items]
+
+
+@pytest.mark.parametrize("bsz", [17, 509])
+def test_ed_generic_group_variant_matches_plain(cuda, bsz):
+    """The build at 2 threads a signature (csrc.VARIANTS) gives the plain
+    version's mask; the library the wrapper loads runs 4."""
+    keys = [ed.keygen(b"gpu-edv-%d" % i) for i in range(3)]
+    items = _ed_items(bsz, keys, "edv")
+    arrays = [torch.from_numpy(a).to(cuda) for a in ed.verify_inputs(items)]
+    assert (cgd.group_size(), cgd.group_size("cuda_eddsa_g2")) == (4, 2)
+    before = cgd.LAUNCHES.launches
+    got = cgd.launch("cuda_eddsa_g2", *arrays)
+    assert cgd.LAUNCHES.launches == before
     assert torch.equal(got, cgd.eddsa_verify_plain(*arrays))
     assert got.cpu().tolist() == [int(ed.verify_item(it)) for it in items]
 

@@ -1,8 +1,9 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
-``smartbft_tpu_torch/csrc/p256_field.cuh`` and ``ed25519_field.cuh``
-(through host_harness.cc) and the field, curve and per-lane verify
-routines the kernels run are held against Python integers — arithmetic
-faults show here, before any time on the card."""
+``smartbft_tpu_torch/csrc/p256_field.cuh``, ``p256_group.cuh``,
+``ed25519_field.cuh`` and ``ed25519_group.cuh`` (through host_harness.cc)
+and the field, curve and per-lane verify routines and the group kernels'
+stage programs are held against Python integers — arithmetic faults show
+here, before any time on the card."""
 
 import ctypes
 import pathlib
@@ -324,3 +325,116 @@ def test_ed_generic_verify_lanes(lib):
     lib.edh_eddsa_verify(len(items), *[_ptr(a) for a in arrays], _ptr(out))
     assert out.tolist() == [int(ed.verify_item(it)) for it in items]
     assert out.tolist() == [1, 1, 0, 0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 group program (ed25519_group.cuh): the fold field mod 2^255 - 19
+# in plain form, and the stage program serialised for g = 1, 2, 4
+# ---------------------------------------------------------------------------
+
+#: edges of the fold field: results may be only partly reduced, so any
+#: value below 2^256 is an input
+ED_EDGES = [0, 1, 19, 37, 38, ed.P - 1, ed.P, ed.P + 1, ed.P + 37,
+            2 * ed.P - 1, 2**255, R - 39, R - 38, R - 1]
+
+
+def _ed_pairs(case):
+    if case == "edges":
+        return [(x, y) for x in ED_EDGES for y in ED_EDGES]
+    rng = np.random.default_rng(13)
+    return [(int.from_bytes(rng.bytes(32), "little"),
+             int.from_bytes(rng.bytes(32), "little")) for _ in range(200)]
+
+
+@pytest.mark.parametrize("case", ["seeded", "edges"])
+def test_ed_fold_field_against_integers(lib, case):
+    """e_mul / e_sqr / e_add / e_sub (folds by 38) give a value below 2^256
+    equal to the exact result mod p; e_canon gives the representative
+    below p."""
+    out = np.zeros(8, np.uint32)
+    p = ed.P
+    for x, y in _ed_pairs(case):
+        a, b = _w(x), _w(y)
+        for fn, want in (("edh_e_mul", x * y), ("edh_e_add", x + y),
+                         ("edh_e_sub", x - y)):
+            getattr(lib, fn)(_ptr(a), _ptr(b), _ptr(out))
+            assert _i(out) % p == want % p, (fn, x, y)
+        lib.edh_e_sqr(_ptr(a), _ptr(out))
+        assert _i(out) % p == x * x % p, x
+        lib.edh_e_canon(_ptr(a), _ptr(out))
+        assert _i(out) == x % p, x
+
+
+def _ed_group(lib, g, arrays, n, slots=None):
+    out = np.full(slots or n, 7, np.uint32)
+    lib.edh_eddsa_verify_group(g, n, *[_ptr(a) for a in arrays], _ptr(out))
+    return out
+
+
+def _off_curve(arrays, lane, which):
+    """``which`` (2: R, 4: A) of ``lane`` moved off the curve (y + 1),
+    with ok left at 1."""
+    arrays = [a.copy() for a in arrays]
+    y = int.from_bytes(arrays[which + 1][lane].tobytes(), "little")
+    arrays[which + 1][lane] = np.frombuffer(
+        ((y + 1) % ed.P).to_bytes(32, "little"), np.uint8)
+    return arrays
+
+
+def _ed_group_batch():
+    """21 votes by three keys: a full block of 16 and a ragged one of 5.
+    Lane 2 has a wrong h (tampered message), 4 has S >= L, 7 an
+    undecodable A (ok = 0), 11 R and 19 A moved off the curve (ok = 1)."""
+    keys = [ed.keygen(b"edg-%d" % i) for i in range(3)]
+    items = []
+    for i in range(21):
+        priv, pub = keys[i % 3]
+        msg = b"eg-%d" % i
+        items.append(ed.make_item(msg, ed.sign_raw(priv, msg), pub))
+    m, sig, pub = items[2]
+    items[2] = (m + b"-tampered", sig, pub)
+    m, sig, pub = items[4]
+    s_int = int.from_bytes(sig[32:], "little")
+    items[4] = (m, sig[:32] + (s_int + ed.L).to_bytes(32, "little"), pub)
+    m, sig, _ = items[7]
+    items[7] = (m, sig, b"\xff" * 32)
+    arrays = _off_curve(_off_curve(ed.verify_inputs(items), 11, 2), 19, 4)
+    expect = [int(ed.verify_item(it)) for it in items]
+    assert expect[:8] == [1, 1, 0, 1, 0, 1, 1, 0]
+    assert expect[11] == expect[19] == 1
+    expect[11] = expect[19] = 0
+    return arrays, expect
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ed_group_program_over_a_ragged_second_block(lib, group):
+    """The stage program agrees with ``verify_item`` on every lane (valid,
+    wrong h, S >= L, R or A off the curve, undecodable A) and with the
+    one-thread lane; the ragged block's idle slots re-run the last
+    signature and store nothing."""
+    arrays, expect = _ed_group_batch()
+    out = _ed_group(lib, group, arrays, 21, slots=24)
+    assert out[:21].tolist() == expect
+    assert out[21:].tolist() == [7, 7, 7]
+    lane = np.zeros(21, np.uint32)
+    lib.edh_eddsa_verify(21, *[_ptr(a) for a in arrays], _ptr(lane))
+    assert lane.tolist() == expect
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ed_group_program_matches_the_plain_version(lib, group):
+    """Seeded random 32-byte rows (R and A mostly off the curve, S mostly
+    >= L) with ok = 1: the stage program's verdicts equal the plain-torch
+    version's, and so does a batch of one."""
+    from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+    import torch
+
+    arrays, _ = _ed_group_batch()
+    rng = np.random.default_rng(29)
+    noise = [rng.integers(0, 256, (6, 32), dtype=np.uint8) for _ in range(6)]
+    arrays = [np.concatenate([a, z]) for a, z in zip(arrays[:6], noise)] + \
+        [np.concatenate([arrays[6], np.ones(6, np.int32)])]
+    want = cgd.eddsa_verify_plain(*[torch.from_numpy(a) for a in arrays])
+    assert _ed_group(lib, group, arrays, 27).tolist() == want.tolist()
+    one = [a[:1].copy() for a in arrays]
+    assert _ed_group(lib, group, one, 1).tolist() == [1]

@@ -1,8 +1,10 @@
-"""The PTX carry chains of ``csrc/p256_field.cuh`` on a CPU.
+"""The PTX carry chains of ``csrc/p256_field.cuh`` and
+``csrc/ed25519_group.cuh`` on a CPU.
 
-The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub`` is inline
-PTX that only nvcc builds, so the host harness (which compiles the
-portable twin) never runs it.  Here the ``asm`` statements are read out
+The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub`` and of
+``e_mul`` / ``e_sqr`` / ``e_add`` / ``e_sub`` is inline PTX that only nvcc
+builds, so the host harness (which compiles the portable twin) never runs
+it.  Here the ``asm`` statements are read out
 of the header as they are, each run on a small emulator of the PTX
 integer instructions they use (``mad``/``madc`` with ``.lo``/``.hi`` and
 the carry flag, ``add``/``addc``, ``sub``/``subc``, ``and``), with the C++
@@ -15,10 +17,10 @@ import re
 import numpy as np
 import pytest
 
-from smartbft_tpu_torch.crypto import p256
+from smartbft_tpu_torch.crypto import ed25519, p256
 
-HEADER = (pathlib.Path(__file__).resolve().parent.parent / "smartbft_tpu_torch"
-          / "csrc" / "p256_field.cuh")
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "smartbft_tpu_torch" \
+    / "csrc"
 M32 = (1 << 32) - 1
 R = 1 << 256
 P = p256.P
@@ -29,8 +31,8 @@ P = p256.P
 # ---------------------------------------------------------------------------
 
 
-def _device_asm():
-    text = HEADER.read_text()
+def _device_asm(header):
+    text = (CSRC / header).read_text()
     dev = text[text.index("#ifdef __CUDA_ARCH__"):]
     blocks = {}
     for m in re.finditer(r"__device__ __forceinline__ \w+ (\w+)\(", dev):
@@ -53,7 +55,10 @@ def _parse_asm(src):
     return code, outs, ins
 
 
-ASM = _device_asm()
+#: the asm statements by function, per header
+HEADERS = {h: _device_asm(h) for h in ("p256_field.cuh", "ed25519_group.cuh")}
+ASM = HEADERS["p256_field.cuh"]
+ED_ASM = HEADERS["ed25519_group.cuh"]
 
 
 def test_the_header_has_the_chains_this_file_runs():
@@ -235,3 +240,67 @@ def test_ptx_add_and_sub_mod_p(kind):
         assert _num(add(_words(x), _words(y))) == (x + y) % P, (x, y)
         assert _num(sub(_words(x), _words(y))) == (x - y) % P, (x, y)
         assert _num(sub(_words(y), _words(x))) == (y - x) % P, (x, y)
+
+
+# ---------------------------------------------------------------------------
+# the fold field mod 2^255 - 19 (ed25519_group.cuh): e_mul / e_sqr are the
+# wide products above and the fold chain; the results are below 2^256 and
+# equal to the exact ones mod p
+# ---------------------------------------------------------------------------
+
+EP = ed25519.P
+
+
+#: the chains each header holds, every one of them run below
+CHAINS = {
+    "p256_field.cuh": {"p_row": 1, "p_redc_round": 1, "p_add_carries": 1,
+                       "p_final_sub": 1, "p_sqr_wide": 8, "p_add": 1,
+                       "p_sub": 1},
+    "ed25519_group.cuh": {"e_fold": 1, "e_add": 1, "e_sub": 1},
+}
+
+
+@pytest.mark.parametrize("header", sorted(CHAINS))
+def test_each_header_has_the_chains_this_file_runs(header):
+    assert {name: len(v) for name, v in HEADERS[header].items() if v} == \
+        CHAINS[header]
+
+
+def e_fold(t):
+    out = [0] * 8
+    _store(_run(ED_ASM["e_fold"][0], _env_arrays(t=(t, 0), k=(38, 0))),
+           "r", out)
+    return out
+
+
+def e_addsub(name, a, b):
+    out = [0] * 8
+    _store(_run(ED_ASM[name][0], _env_arrays(a=(a, 0), b=(b, 0))), "r", out)
+    return out
+
+
+def _ed_cases(kind):
+    if kind == "edges":
+        xs = [0, 1, 19, 38, EP - 1, EP, EP + 1, 2 * EP - 1, 2**255, R - 39,
+              R - 38, R - 1]
+        return [(x, y) for x in xs for y in xs]
+    rng = np.random.default_rng(31)
+    return [(int.from_bytes(rng.bytes(32), "little"),
+             int.from_bytes(rng.bytes(32), "little")) for _ in range(60)]
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_fold_product_and_square_mod_2p255_19(kind):
+    for x, y in _ed_cases(kind):
+        got = _num(e_fold(mul_wide(_words(x), _words(y))))
+        assert got < R and got % EP == x * y % EP, (x, y)
+        got = _num(e_fold(sqr_wide(_words(x))))
+        assert got < R and got % EP == x * x % EP, x
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_fold_add_and_sub_mod_2p255_19(kind):
+    for x, y in _ed_cases(kind):
+        for name, want in (("e_add", x + y), ("e_sub", x - y)):
+            got = _num(e_addsub(name, _words(x), _words(y)))
+            assert got < R and got % EP == want % EP, (name, x, y)
