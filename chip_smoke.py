@@ -8,10 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
-                (four, sm_90a, and the generic P-256 kernel at 4 threads a
-                signature and the generic Ed25519 one at 2, one nvcc each,
-                all started together); prints build seconds and ptxas'
-                registers / stack / spills.
+                (four, sm_90a, and the P-256 comb and generic kernels at 4
+                threads a signature and the generic Ed25519 one at 2, one
+                nvcc each, all started together); prints build seconds and
+                ptxas' registers / stack / spills / shared bytes.
 2. comb       — the P-256 comb kernel against its plain-torch version at
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
                 a seeded rejection matrix (corrupted r, r = 0, s >= n,
@@ -59,6 +59,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 and spills.
 9. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
+10. comb_groups — the same for the P-256 comb kernel: the library (8
+                threads a signature) and the build at 4.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -211,6 +213,14 @@ def phase_build():
               flush=True)
     emit(out)
     return report
+
+
+def first_lanes(args, bsz: int):
+    """A kernel's arguments cut to their first ``bsz`` lanes: the per-lane
+    tensors are sliced, the uint32 tables pass whole."""
+    import torch
+
+    return [a if a.dtype == torch.uint32 else a[:bsz] for a in args]
 
 
 def kernel_phase(name, run_kernel, run_plain, expect, make_args):
@@ -728,15 +738,10 @@ def phase_kernels(recs, cells, clock_hz, sms):
         rung = cell["main_rung"]
         top = max(rec)  # 16384 lanes, the top rung
         args16 = rec[top]["args"]
-
-        def lanes(b):
-            return [a[:b] if a.dim() and a.shape[0] == top
-                    and a.dtype != torch.uint32 else a for a in args16]
-
-        args_r = lanes(rung)
+        args_r = first_lanes(args16, rung)
         ms_by_rung = {}
         for r in cell["rung_launches"]:
-            args_b = lanes(int(r))
+            args_b = first_lanes(args16, int(r))
             ms_by_rung[r] = round(time_ms(lambda: kern(*args_b), 20), 4)
         ms_rung = ms_by_rung[str(rung)]
         ms_16k = time_ms(lambda: kern(*args16), 10)
@@ -781,7 +786,7 @@ def phase_kernels(recs, cells, clock_hz, sms):
 
 
 def group_phase(phase, lib, mod, plain, rec, report):
-    """A generic kernel at each group size it is built with (threads a
+    """A group kernel at each group size it is built with (threads a
     signature): the library ``lib`` that the wrapper loads and its builds
     in ``csrc.VARIANTS``, each held to the plain mask at rung 512 and timed
     in turns (a, b, b, a) at the rungs 128, 512 and 2048 and at 16384
@@ -796,11 +801,11 @@ def group_phase(phase, lib, mod, plain, rec, report):
                       if src == csrc.SOURCES[lib]]
     # each build by the group size it reports, the wrapper's first
     groups = {f"G{mod.group_size(name)}": name for name in builds}
-    want = plain(*[a[:512] for a in args16])
+    want = plain(*first_lanes(args16, 512))
     ms = {}
     order = list(groups)
     for rung in (128, 512, 2048, 16384):
-        args = [a[:rung] for a in args16]
+        args = first_lanes(args16, rung)
         for key in order + order[::-1]:
             name = groups[key]
             if rung == 512 and not torch.equal(mod.launch(name, *args), want):
@@ -875,6 +880,7 @@ def main() -> int:
         cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
                  **timed("e2e_ed25519", phase_e2e, wal_root, ed25519)}
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
+        from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
 
@@ -883,6 +889,8 @@ def main() -> int:
         timed("ed_generic_groups", group_phase, "ed_generic_groups",
               "cuda_eddsa", cgd, cgd.eddsa_verify_plain, recs["ed_generic"],
               report)
+        timed("comb_groups", group_phase, "comb_groups", "cuda_comb", cc,
+              cc.ecdsa_verify_comb_plain, recs["comb"], report)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds,

@@ -17,8 +17,10 @@ over.  Tables are uint32 Montgomery words shaped ``(npad, 256, 3, 8)``,
 entry 0 the projective identity (0 : 1 : 0).
 
 * :func:`ecdsa_verify_comb` is the wrapper: CUDA tensors launch
-  ``csrc/cuda_comb.cu`` (counted in :data:`LAUNCHES`), CPU tensors run
-  :func:`ecdsa_verify_comb_plain`; there is no fallback between them.
+  ``csrc/cuda_comb.cu`` (a group of 8 threads per signature over the stage
+  program of ``csrc/p256_comb_group.cuh``, counted in :data:`LAUNCHES`),
+  CPU tensors run :func:`ecdsa_verify_comb_plain`; there is no fallback
+  between them.
 * :class:`CombKeyRegistry` and :class:`CombVerifier` are the engine side:
   registration, power-of-two stacking, the registry-full warning, and a
   device-table cache keyed on the registry version.
@@ -193,18 +195,28 @@ def ecdsa_verify_comb_plain(e, r, s, kidx, gtab, qtab) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = csrc.load("cuda_comb")
+@functools.lru_cache(maxsize=None)
+def _lib(name: str = "cuda_comb"):
+    """The kernel library the wrapper loads, or a build of the same source
+    with another group size (a name in :data:`csrc.VARIANTS`)."""
+    lib = csrc.load(name)
     vp = ctypes.c_void_p
     lib.smartbft_comb_verify.restype = ctypes.c_int
     lib.smartbft_comb_verify.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int,
                                          vp, ctypes.c_int, vp]
+    lib.smartbft_comb_group.restype = ctypes.c_int
+    lib.smartbft_comb_group.argtypes = []
     return lib
 
 
-def ecdsa_verify_comb_cuda(e, r, s, kidx, gtab, qtab) -> torch.Tensor:
-    """Launch the comb kernel on CUDA tensors (shapes as the plain one)."""
+def group_size(name: str = "cuda_comb") -> int:
+    """Threads per signature of the kernel library ``name``."""
+    return _lib(name).smartbft_comb_group()
+
+
+def launch(lib: str, e, r, s, kidx, gtab, qtab) -> torch.Tensor:
+    """Check the CUDA tensors (shapes as the plain version's), then launch
+    the kernel of the library ``lib`` (see :func:`_lib`); counts nothing."""
     bsz, dev = e.shape[0], e.device
     for a, name in zip((e, r, s), ("e", "r", "s")):
         _check_bytes(a, name, bsz, dev)
@@ -221,12 +233,19 @@ def ecdsa_verify_comb_cuda(e, r, s, kidx, gtab, qtab) -> torch.Tensor:
     if bsz == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().smartbft_comb_verify(
+    rc = _lib(lib).smartbft_comb_verify(
         e.data_ptr(), r.data_ptr(), s.data_ptr(), kidx.data_ptr(),
         gtab.data_ptr(), qtab.data_ptr(), qtab.shape[0], out.data_ptr(),
         bsz, stream)
     csrc.check(rc, "comb_verify")
-    LAUNCHES.add(bsz)
+    return out
+
+
+def ecdsa_verify_comb_cuda(e, r, s, kidx, gtab, qtab) -> torch.Tensor:
+    """Launch the comb kernel on CUDA tensors (shapes as the plain one)."""
+    out = launch("cuda_comb", e, r, s, kidx, gtab, qtab)
+    if out.numel():
+        LAUNCHES.add(out.numel())
     return out
 
 

@@ -458,6 +458,8 @@ class AsyncBatchCoalescer:
             metrics.breaker_state.set(0.0)  # healthy until proven otherwise
         self.fault_stats = VerifyFaultStats()
         self.shard_stats = ShardAttribution()
+        self.mesh_configured = 0   # Configuration.verify_mesh_devices wired
+        self.mesh_downgrades = 0   # loud unbuildable-mesh downgrades
         #: flight recorder (obs.TraceRecorder; nop singleton when tracing
         #: is off) — verify enqueue/launch spans + breaker
         #: transitions, correlated by a per-coalescer launch id.  Shared
@@ -536,6 +538,15 @@ class AsyncBatchCoalescer:
     def shard_snapshot(self) -> dict:
         """Wave-composition attribution (see :class:`ShardAttribution`)."""
         return self.shard_stats.snapshot()
+
+    def mesh_snapshot(self) -> dict:
+        """Which verify plane ran, under the JAX package's keys: the port
+        has no mesh engine yet, so always one device, with the configured
+        width and the counted downgrades beside it, so a run configured for
+        a mesh is never mistaken for one that had it."""
+        return {"enabled": False, "devices": 1,
+                "configured_devices": self.mesh_configured,
+                "downgrades": self.mesh_downgrades, "topology": "1d"}
 
     async def submit(self, items, tag=None) -> list[bool]:
         """``tag``: opaque attribution label (the submitter's shard id in
@@ -1046,6 +1057,45 @@ class CryptoProvider:
         self._coalescer.configure(
             policy=policy, fallback_engine=fallback_engine, metrics=metrics
         )
+
+    def configure_verify_mesh(self, devices: int, metrics=None,
+                              topology: str = "1d") -> None:
+        """The ``Configuration.verify_mesh_devices`` knob, wired by
+        ``Consensus._wire_verify_plane``.  The port has no mesh engine yet,
+        so any width above 0 takes the JAX package's degraded mode for an
+        unbuildable mesh: the current engine stays, LOUDLY, with a counted
+        downgrade (``coalescer.mesh_downgrades`` and
+        ``consensus.tpu.count_mesh_downgrades``)."""
+        if devices <= 0:
+            return
+        co = self._coalescer
+        co.mesh_configured = int(devices)
+        # the coalescer's own (shared) metrics bundle first, as for the
+        # fault policy
+        if metrics is not None and co.metrics is None:
+            co.configure(metrics=metrics)
+        metrics = co.metrics if co.metrics is not None else metrics
+        co.mesh_downgrades += 1
+        if metrics is not None and hasattr(metrics, "count_mesh_downgrades"):
+            metrics.count_mesh_downgrades.add(1)
+        logging.getLogger("smartbft_tpu_torch.crypto").warning(
+            "verify mesh UNBUILDABLE (verify mesh wants %d device(s) in a "
+            "%s topology; the port has no mesh engine yet); DOWNGRADED to "
+            "the single-device %s (downgrade %d counted)",
+            int(devices), topology, type(co.engine).__name__,
+            co.mesh_downgrades,
+        )
+
+    def configure_flush_hold(self, hold: Optional[float]) -> None:
+        """The ``Configuration.verify_flush_hold`` knob.  The occupancy-
+        aware flush hold is not ported yet (it comes with the view-flip
+        warm path), so a hold above 0 raises, and
+        ``Consensus._wire_verify_plane`` logs the error at warn: a run that
+        asked for a hold says in its log that it flushed without one."""
+        if hold is not None and hold > 0:
+            raise NotImplementedError(
+                f"verify_flush_hold={hold}: the occupancy-aware flush hold "
+                "is not ported yet; waves flush without a hold")
 
     def configure_misbehavior(self, table) -> None:
         """Late misbehavior wiring (Consensus._wire_verify_plane): every

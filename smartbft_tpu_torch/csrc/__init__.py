@@ -26,13 +26,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "cuda")
 SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
            "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu"}
 #: builds of a source with another compile-time constant, which no wrapper
-#: loads (``chip_smoke.py`` times them beside the library): the generic
-#: P-256 kernel at 4 threads a signature, the generic Ed25519 one at 2
-VARIANTS = {"cuda_ecdsa_g4": ("cuda_ecdsa.cu", ("-DECDSA_GROUP=4",)),
+#: loads (``chip_smoke.py`` times them beside the library): the P-256 comb
+#: and generic kernels at 4 threads a signature, the generic Ed25519 one
+#: at 2
+VARIANTS = {"cuda_comb_g4": ("cuda_comb.cu", ("-DCOMB_GROUP=4",)),
+            "cuda_ecdsa_g4": ("cuda_ecdsa.cu", ("-DECDSA_GROUP=4",)),
             "cuda_eddsa_g2": ("cuda_eddsa.cu", ("-DEDDSA_GROUP=2",))}
 #: every header; an edit to any of them rebuilds every kernel
 HEADERS = ("field256.cuh", "p256_field.cuh", "p256_group.cuh",
-           "ed25519_field.cuh", "ed25519_group.cuh")
+           "p256_comb_group.cuh", "ed25519_field.cuh", "ed25519_group.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,8 +75,9 @@ def _stale(name: str) -> bool:
 
 
 def parse_ptxas(text: str) -> dict:
-    """Registers, stack and spill bytes of the ``__global__`` kernel in an
-    ``-Xptxas -v`` log (the last function reported with registers)."""
+    """Registers, stack, spill and static shared-memory bytes of the
+    ``__global__`` kernel in an ``-Xptxas -v`` log (the last function
+    reported with registers)."""
     out = {}
     for line in text.splitlines():
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -86,6 +89,9 @@ def parse_ptxas(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out["shared_bytes"] = int(m.group(1))
     return out
 
 

@@ -1,7 +1,7 @@
 // Host build of the kernels' headers for the CPU tests: g++ compiles the
 // same field, curve and per-lane verify routines that the CUDA kernels run
-// (p256_field.cuh, p256_group.cuh, ed25519_field.cuh, ed25519_group.cuh,
-// over field256.cuh),
+// (p256_field.cuh, p256_group.cuh, p256_comb_group.cuh, ed25519_field.cuh,
+// ed25519_group.cuh, over field256.cuh),
 // and exposes them through a C interface so Python can hold them against
 // integer arithmetic before any time is spent on the card.
 //
@@ -10,6 +10,7 @@
 
 #include "ed25519_field.cuh"
 #include "ed25519_group.cuh"
+#include "p256_comb_group.cuh"
 #include "p256_field.cuh"
 #include "p256_group.cuh"
 
@@ -61,6 +62,32 @@ void verify_group(int n, const uint32_t* e, const uint32_t* r,
       for (int loc = 0; loc < kSigs; ++loc)
         for (int rank = 0; rank < G; ++rank)
           res[loc] |= p256g::stage<G>(id, rank, acc[loc][rank], sh[loc],
+                                      in[loc]);
+    for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
+      out[base + loc] = res[loc];
+  }
+}
+
+template <int G>
+void comb_group(int n, const uint32_t* e, const uint32_t* r,
+                const uint32_t* s, const int32_t* kidx, const uint32_t* gtab,
+                const uint32_t* qtab, int nkeys, uint32_t* out) {
+  constexpr int kSigs = p256c::kSigsPerBlock;
+  std::vector<p256c::Shared> sh(kSigs);
+  std::vector<Pt> acc(kSigs * G);
+  for (int base = 0; base < n; base += kSigs) {
+    p256c::In in[kSigs];
+    uint32_t res[kSigs] = {};
+    for (int loc = 0; loc < kSigs; ++loc) {
+      int src = base + loc < n ? base + loc : n - 1;
+      size_t off = 8 * (size_t)src;
+      p256c::prologue(sh[loc], e + off, r + off, s + off, kidx[src], nkeys);
+      in[loc] = p256c::In{gtab, qtab, r + off};
+    }
+    for (int id = 0; id < p256c::kStages; ++id)
+      for (int loc = 0; loc < kSigs; ++loc)
+        for (int rank = 0; rank < G; ++rank)
+          res[loc] |= p256c::stage<G>(id, rank, acc[loc * G + rank], sh[loc],
                                       in[loc]);
     for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
       out[base + loc] = res[loc];
@@ -146,6 +173,36 @@ void p256h_comb_verify(int n, const uint32_t* e, const uint32_t* r,
         (k >= 0 && k < nkeys) ? qtab + (size_t)k * 256 * 24 : nullptr;
     out[i] = p256::comb_verify_lane(e + 8 * i, r + 8 * i, s + 8 * i, gtab, q);
   }
+}
+
+// the comb group kernel's program (p256_comb_group.cuh) for a group of g =
+// 1, 4 or 8 ranks, serialised: per batch of kSigsPerBlock signatures, the
+// prologue on each signature, then each stage on every signature and rank
+// in turn.  Signatures past n re-run the last one and store nothing, as
+// the kernel's do.
+void p256h_comb_verify_group(int g, int n, const uint32_t* e,
+                             const uint32_t* r, const uint32_t* s,
+                             const int32_t* kidx, const uint32_t* gtab,
+                             const uint32_t* qtab, int nkeys, uint32_t* out) {
+  switch (g) {
+    case 1: comb_group<1>(n, e, r, s, kidx, gtab, qtab, nkeys, out); break;
+    case 4: comb_group<4>(n, e, r, s, kidx, gtab, qtab, nkeys, out); break;
+    case 8: comb_group<8>(n, e, r, s, kidx, gtab, qtab, nkeys, out); break;
+    default: break;
+  }
+}
+
+// the comb prologue's products mod n (PTX carry chains on the card)
+void p256h_n_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put(out, p256c::n_mul(get(a), get(b)));
+}
+
+void p256h_n_sqr(const uint32_t* a, uint32_t* out) {
+  put(out, p256c::n_sqr(get(a)));
+}
+
+void p256h_n_inv(const uint32_t* a, uint32_t* out) {
+  put(out, p256c::n_inv(get(a)));
 }
 
 // the generic kernel's lane loop, run sequentially

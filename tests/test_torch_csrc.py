@@ -22,6 +22,14 @@ def test_parse_ptxas_report():
         "registers": 180}
 
 
+def test_parse_ptxas_reads_static_shared_memory():
+    line = ("ptxas info    : Used 168 registers, used 1 barriers, 22912 bytes "
+            "smem, 400 bytes cmem[0]\n")
+    assert csrc.parse_ptxas(PTXAS + line) == {
+        "stack_bytes": 512, "spill_store_bytes": 8, "spill_load_bytes": 16,
+        "registers": 168, "shared_bytes": 22912}
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -65,10 +73,14 @@ def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
     assert args[-1].endswith("cuda_ecdsa.cu")
     assert report["cuda_ecdsa_g4"]["registers"] == 96
     assert (tmp_path / "build" / "libcuda_ecdsa_g4.so").exists()
-    assert set(csrc.VARIANTS) == {"cuda_ecdsa_g4", "cuda_eddsa_g2"}
+    assert set(csrc.VARIANTS) == {"cuda_comb_g4", "cuda_ecdsa_g4",
+                                  "cuda_eddsa_g2"}
     csrc.build(names=["cuda_eddsa_g2"], force=True)
     args = (tmp_path / "args").read_text().split()
     assert "-DEDDSA_GROUP=2" in args and args[-1].endswith("cuda_eddsa.cu")
+    csrc.build(names=["cuda_comb_g4"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DCOMB_GROUP=4" in args and args[-1].endswith("cuda_comb.cu")
 
 
 def test_launch_counter_is_thread_safe():

@@ -48,8 +48,10 @@ def _items(n, keys, tag):
     return items
 
 
-@pytest.mark.parametrize("bsz", [1, 130, 2048])
+@pytest.mark.parametrize("bsz", [1, 17, 130, 509, 2048])
 def test_comb_kernel_matches_plain(cuda, bsz):
+    """Ragged batches too: the kernel verifies 32 signatures a block, and
+    the signatures past the batch must neither store nor stall a group."""
     keys = [p256.keygen(b"gpu-%d" % i) for i in range(8)]
     items = _items(max(bsz, 4), keys, "comb")[:bsz]
     reg = cc.CombKeyRegistry()
@@ -64,6 +66,28 @@ def test_comb_kernel_matches_plain(cuda, bsz):
     assert cc.LAUNCHES.launches == before + 1
     want = cc.ecdsa_verify_comb_plain(*args, *tables)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bsz", [17, 509])
+def test_comb_group_variant_matches_plain(cuda, bsz):
+    """The build at 4 threads a signature (csrc.VARIANTS) gives the plain
+    version's mask; the library the wrapper loads runs 8."""
+    keys = [p256.keygen(b"gpu-cv-%d" % i) for i in range(3)]
+    items = _items(bsz, keys, "combv")
+    reg = cc.CombKeyRegistry()
+    e8, r8, s8, kidx = cc.pack_items(items, reg)
+    kidx[4] = (kidx[4] + 1) % 3
+    args = [torch.from_numpy(a).to(cuda) for a in (e8, r8, s8, kidx)] + \
+        [torch.from_numpy(cc.g_table()).to(cuda),
+         torch.from_numpy(reg.stacked()).to(cuda)]
+    assert (cc.group_size(), cc.group_size("cuda_comb_g4")) == (8, 4)
+    before = cc.LAUNCHES.launches
+    got = cc.launch("cuda_comb_g4", *args)
+    assert cc.LAUNCHES.launches == before
+    assert torch.equal(got, cc.ecdsa_verify_comb_plain(*args))
+    expect = [int(p256.verify_item(it)) for it in items]
+    expect[4] = 0
+    assert got.cpu().tolist() == expect
 
 
 @pytest.mark.parametrize("bsz", [1, 33, 130, 509])

@@ -1,6 +1,7 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
 ``smartbft_tpu_torch/csrc/p256_field.cuh``, ``p256_group.cuh``,
-``ed25519_field.cuh`` and ``ed25519_group.cuh`` (through host_harness.cc)
+``p256_comb_group.cuh``, ``ed25519_field.cuh`` and ``ed25519_group.cuh``
+(through host_harness.cc)
 and the field, curve and per-lane verify routines and the group kernels'
 stage programs are held against Python integers — arithmetic faults show
 here, before any time on the card."""
@@ -219,6 +220,154 @@ def test_group_program_over_a_ragged_second_block(lib, group):
                                  _ptr(out))
     assert out[:21].tolist() == expect
     assert out[21:].tolist() == [7, 7, 7]
+
+
+# ---------------------------------------------------------------------------
+# the comb group program (p256_comb_group.cuh): products mod n on the
+# prologue's chains, the block-level prologue and the stages serialised
+# ---------------------------------------------------------------------------
+
+#: first operands of the products mod n: any value below 2^256
+N_EDGES = [0, 1, p256.N - 1, R - 1, R % p256.N]
+
+
+@pytest.mark.parametrize("case", ["seeded", "edges"])
+def test_mod_n_product_and_square(lib, case):
+    """n_mul / n_sqr (the wide products and a CIOS reduction mod n) against
+    Python integers: a * b * 2^-256 mod n, fully reduced, for any a < 2^256
+    and b < n (n_sqr: a < n)."""
+    n = p256.N
+    rinv = pow(R, -1, n)
+    if case == "seeded":
+        rng = np.random.default_rng(17)
+        pairs = [(int.from_bytes(rng.bytes(32), "little"),
+                  int.from_bytes(rng.bytes(32), "little") % n)
+                 for _ in range(200)]
+    else:
+        pairs = [(x, y) for x in N_EDGES for y in N_EDGES if y < n]
+    out = np.zeros(8, np.uint32)
+    for x, y in pairs:
+        lib.p256h_n_mul(_ptr(_w(x)), _ptr(_w(y)), _ptr(out))
+        assert _i(out) == x * y * rinv % n, (x, y)
+        if x < n:
+            lib.p256h_n_sqr(_ptr(_w(x)), _ptr(out))
+            assert _i(out) == x * x * rinv % n, x
+
+
+def test_inversion_mod_n_on_the_comb_product(lib):
+    out = np.zeros(8, np.uint32)
+    for x in _ints(19, 10, p256.N)[:-3] + [1, 2, p256.N - 1]:
+        lib.p256h_n_inv(_ptr(_w(x * R % p256.N)), _ptr(out))
+        assert _i(out) == pow(x, -1, p256.N) * R % p256.N
+
+
+def _comb_truth(e, r, s, pub, in_stack):
+    """The comb verify on Python integers: 1 <= r, s < n, a key in the
+    stack, x(e/s G + r/s Q) = r mod n."""
+    n = p256.N
+    if not (in_stack and 0 < r < n and 0 < s < n):
+        return 0
+    w = pow(s, -1, n)
+    pt = p256._point_add_int(p256.scalar_mult_int(e * w % n, (p256.GX, p256.GY)),
+                             p256.scalar_mult_int(r * w % n, pub))
+    return int(pt is not None and pt[0] % n == r)
+
+
+def _comb_group_batch():
+    """37 lanes by three keys: a full block of 32 and a ragged one of 5.
+    Lane 3 has r = 0, 8 s = n, 12 a wrong e, 20 and 21 a key index outside
+    the stack (4, -1), 22 the stack's zero-padded slot; lane 33 is a valid
+    signature on e = 0 (every G digit the identity entry) and 34 has s = r
+    (u2 = 1: Q digits the identity but one)."""
+    keys = [p256.keygen(b"hc-%d" % i) for i in range(3)]
+    items = []
+    for i in range(37):
+        d, pub = keys[i % 3]
+        msg = b"c-%d" % i
+        items.append((msg, *p256.sign(d, msg), pub))
+    reg = cc.CombKeyRegistry()
+    e8, r8, s8, kidx = cc.pack_items(items, reg)
+    rows = [[_i(a[i].view(np.uint32)) for a in (e8, r8, s8)]
+            for i in range(37)]
+    rows[3][1] = 0
+    rows[8][2] = p256.N
+    rows[12][0] += 1
+    kidx[20], kidx[21], kidx[22] = 4, -1, 3
+    # r, s over e = 0 with nonce k: s = r d / k, so r/s Q = k G
+    d, _ = keys[33 % 3]
+    k = 0x1234567
+    r = p256.scalar_mult_int(k, (p256.GX, p256.GY))[0] % p256.N
+    rows[33] = [0, r, r * d * pow(k, -1, p256.N) % p256.N]
+    rows[34][2] = rows[34][1]
+    arrays = [np.stack([_w(row[j]).view(np.uint8) for row in rows])
+              for j in range(3)]
+    stack = reg.stacked()
+    assert stack.shape[0] == 4 and not stack[3].any()
+    truth = [_comb_truth(*rows[i], items[i][3], kidx[i] in (0, 1, 2))
+             for i in range(37)]
+    assert [i for i, t in enumerate(truth) if not t] == [3, 8, 12, 20, 21, 22, 34]
+    assert truth[33] == 1
+    return arrays, kidx, stack, truth
+
+
+def _comb_group(lib, g, arrays, kidx, stack, slots=None):
+    n = len(kidx)
+    out = np.full(slots or n, 7, np.uint32)
+    lib.p256h_comb_verify_group(g, n, *[_ptr(a) for a in arrays], _ptr(kidx),
+                                _ptr(cc.g_table()), _ptr(stack),
+                                stack.shape[0], _ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_comb_group_program_over_a_ragged_second_block(lib, group):
+    """The prologue and the stage program agree with the integer verify on
+    every lane (valid, r = 0, s = n, wrong e, key index outside the stack,
+    zero-padded slot, identity entries) and with the one-thread lane; the
+    ragged block's idle slots re-run the last signature and store
+    nothing."""
+    arrays, kidx, stack, truth = _comb_group_batch()
+    out = _comb_group(lib, group, arrays, kidx, stack, slots=40)
+    assert out[:37].tolist() == truth
+    assert out[37:].tolist() == [7, 7, 7]
+    lane = np.zeros(37, np.uint32)
+    lib.p256h_comb_verify(37, *[_ptr(a) for a in arrays], _ptr(kidx),
+                          _ptr(cc.g_table()), _ptr(stack), stack.shape[0],
+                          _ptr(lane))
+    assert lane.tolist() == truth
+
+
+@pytest.fixture(scope="module")
+def comb_plain_batch():
+    """The ragged batch plus 8 seeded random rows (e, r, s any 256-bit
+    values, kidx any of -1 .. 4), and the plain-torch version's mask."""
+    import torch
+
+    arrays, kidx, stack, _ = _comb_group_batch()
+    rng = np.random.default_rng(37)
+    arrays = [np.concatenate([a, rng.integers(0, 256, (8, 32), np.uint8)])
+              for a in arrays]
+    kidx = np.concatenate([kidx, rng.integers(-1, 5, 8).astype(np.int32)])
+    want = cc.ecdsa_verify_comb_plain(
+        *[torch.from_numpy(a) for a in (*arrays, kidx, cc.g_table(), stack)])
+    return arrays, kidx, stack, want.tolist()
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_comb_group_program_matches_the_plain_version(lib, group,
+                                                      comb_plain_batch):
+    """The stage program's verdicts equal the plain-torch version's and the
+    one-thread lane's, bit for bit, and so does a batch of one."""
+    arrays, kidx, stack, want = comb_plain_batch
+    assert _comb_group(lib, group, arrays, kidx, stack).tolist() == want
+    lane = np.zeros(len(kidx), np.uint32)
+    lib.p256h_comb_verify(len(kidx), *[_ptr(a) for a in arrays], _ptr(kidx),
+                          _ptr(cc.g_table()), _ptr(stack), stack.shape[0],
+                          _ptr(lane))
+    assert lane.tolist() == want
+    one = [a[:1].copy() for a in arrays]
+    assert _comb_group(lib, group, one, kidx[:1].copy(), stack).tolist() == \
+        want[:1] == [1]
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,9 @@ SPI — on the CPU, where the engine runs the kernels' plain versions.  Each
 verdict is held against the JAX package's integer reference."""
 
 import asyncio
+import dataclasses
+import importlib
+import logging
 
 import pytest
 import torch
@@ -299,3 +302,63 @@ def test_ed25519_prewarm_runs_every_requested_rung():
     prewarm_verify_engine(eng, sizes=(2,))
     assert eng.rung_launches == {2: 1}
     assert eng.route_launches == {"comb": 1, "generic": 0}
+
+
+# ---------------------------------------------------------------------------
+# Configuration knobs the port does not serve yet: degraded loudly, as the
+# JAX package degrades an unbuildable mesh
+# ---------------------------------------------------------------------------
+
+
+def _wired_replica(pkg, **knobs):
+    """One P-256 replica of ``pkg`` (the port or the JAX package) on host
+    crypto, started and stopped on the logical clock with ``knobs`` set in
+    its Configuration; returns (its App, its provider)."""
+    app_mod = importlib.import_module(f"{pkg}.testing.app")
+    network = importlib.import_module(f"{pkg}.testing.network")
+    clock = importlib.import_module(f"{pkg}.utils.clock")
+    prov_mod = importlib.import_module(f"{pkg}.crypto.provider")
+    ring = prov_mod.Keyring.generate([1], seed=b"knobs")[1]
+    provider = prov_mod.P256CryptoProvider(ring)
+    cfg = dataclasses.replace(app_mod.fast_config(1), **knobs)
+    app = app_mod.App(1, network.Network(seed=1), app_mod.SharedLedgers(),
+                      clock.Scheduler(), config=cfg, use_metrics=True,
+                      crypto=provider)
+
+    async def run():
+        await app.start()
+        await app.stop()
+
+    asyncio.run(run())
+    return app, provider
+
+
+def test_a_verify_mesh_wider_than_the_host_is_a_counted_downgrade(caplog):
+    """verify_mesh_devices=16 over the tests' 8 virtual devices: both
+    packages keep their engine, count one downgrade on the coalescer and
+    in consensus.tpu.count_mesh_downgrades, and log it."""
+    counts = {}
+    for pkg in ("smartbft_tpu", "smartbft_tpu_torch"):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            app, provider = _wired_replica(pkg, verify_mesh_devices=16)
+        co = provider.coalescer
+        counts[pkg] = (co.mesh_downgrades, co.mesh_configured,
+                       app.metrics.provider.counters.get(
+                           "consensus.tpu.count_mesh_downgrades"),
+                       co.mesh_snapshot()["downgrades"])
+        assert co.engine is provider.engine
+        assert "verify mesh UNBUILDABLE" in caplog.text
+        assert "DOWNGRADED" in caplog.text
+    assert counts["smartbft_tpu_torch"] == counts["smartbft_tpu"] \
+        == (1, 16, 1, 1)
+
+
+def test_a_verify_flush_hold_is_logged_not_dropped():
+    """verify_flush_hold=0.05: the port has no flush hold yet, so its
+    replica's log says the knob was not applied; 0 needs nothing."""
+    app, _ = _wired_replica("smartbft_tpu_torch", verify_flush_hold=0.05)
+    assert app.logger.contains("verify flush-hold wiring failed")
+    assert app.logger.contains("flush hold is not ported")
+    app, _ = _wired_replica("smartbft_tpu_torch", verify_flush_hold=0.0)
+    assert not app.logger.contains("flush-hold")

@@ -1,9 +1,9 @@
-"""The PTX carry chains of ``csrc/p256_field.cuh`` and
-``csrc/ed25519_group.cuh`` on a CPU.
+"""The PTX carry chains of ``csrc/p256_field.cuh``,
+``csrc/ed25519_group.cuh`` and ``csrc/p256_comb_group.cuh`` on a CPU.
 
-The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub`` and of
-``e_mul`` / ``e_sqr`` / ``e_add`` / ``e_sub`` is inline PTX that only nvcc
-builds, so the host harness (which compiles the portable twin) never runs
+The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub``, of
+``e_mul`` / ``e_sqr`` / ``e_add`` / ``e_sub`` and of ``n_mul`` / ``n_sqr``
+is inline PTX that only nvcc builds, so the host harness (which compiles the portable twin) never runs
 it.  Here the ``asm`` statements are read out
 of the header as they are, each run on a small emulator of the PTX
 integer instructions they use (``mad``/``madc`` with ``.lo``/``.hi`` and
@@ -56,9 +56,11 @@ def _parse_asm(src):
 
 
 #: the asm statements by function, per header
-HEADERS = {h: _device_asm(h) for h in ("p256_field.cuh", "ed25519_group.cuh")}
+HEADERS = {h: _device_asm(h) for h in ("p256_field.cuh", "ed25519_group.cuh",
+                                        "p256_comb_group.cuh")}
 ASM = HEADERS["p256_field.cuh"]
 ED_ASM = HEADERS["ed25519_group.cuh"]
+N_ASM = HEADERS["p256_comb_group.cuh"]
 
 
 def test_the_header_has_the_chains_this_file_runs():
@@ -257,6 +259,7 @@ CHAINS = {
                        "p_final_sub": 1, "p_sqr_wide": 8, "p_add": 1,
                        "p_sub": 1},
     "ed25519_group.cuh": {"e_fold": 1, "e_add": 1, "e_sub": 1},
+    "p256_comb_group.cuh": {"n_redc_round": 1, "n_final_sub": 1},
 }
 
 
@@ -304,3 +307,52 @@ def test_ptx_fold_add_and_sub_mod_2p255_19(kind):
         for name, want in (("e_add", x + y), ("e_sub", x - y)):
             got = _num(e_addsub(name, _words(x), _words(y)))
             assert got < R and got % EP == want % EP, (name, x, y)
+
+
+# ---------------------------------------------------------------------------
+# products mod n (p256_comb_group.cuh): the wide products above, 8 CIOS
+# rounds of q = t[i] n' and a row of n, the deferred carries and a final
+# subtraction of n
+# ---------------------------------------------------------------------------
+
+N = p256.N
+N0INV = 0xEE00BC4F  # -n^-1 mod 2^32
+
+
+def n_redc(t):
+    t = list(t)
+    c = []
+    for i in range(8):
+        q = t[i] * N0INV & M32
+        res = _run(N_ASM["n_redc_round"][0],
+                   _env_arrays(t=(t, i), nw=(_words(N), 0), q=(q, 0)))
+        c.append(res.pop("c"))
+        _store(res, "t", t, i)
+        assert t[i] == 0
+    _store(_run(ASM["p_add_carries"][0], _env_arrays(t=(t, 0), c=(c, 0))),
+           "t", t)
+    res = _run(N_ASM["n_final_sub"][0], _env_arrays(t=(t, 0)))
+    keep, d = res.pop("keep"), [0] * 8
+    _store(res, "d", d)
+    assert keep in (0, M32)
+    return [(t[8 + j] & keep) | (d[j] & ~keep & M32) for j in range(8)]
+
+
+def _n_cases(kind):
+    if kind == "edges":
+        xs = [0, 1, N - 1, R - 1, R % N, 2**255]
+        return [(x, y) for x in xs for y in xs if y < N]
+    rng = np.random.default_rng(41)
+    return [(int.from_bytes(rng.bytes(32), "little"),
+             int.from_bytes(rng.bytes(32), "little") % N)
+            for _ in range(60)]
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_product_and_square_mod_n(kind):
+    rinv = pow(R, -1, N)
+    for x, y in _n_cases(kind):
+        got = _num(n_redc(mul_wide(_words(x), _words(y))))
+        assert got == x * y * rinv % N, (x, y)
+        if x < N:
+            assert _num(n_redc(sqr_wide(_words(x)))) == x * x * rinv % N, x
