@@ -9,8 +9,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
                 (four, sm_90a, and the P-256 comb and generic kernels at 4
-                threads a signature and the generic Ed25519 one at 2, one
-                nvcc each, all started together); prints build seconds and
+                threads a signature and the Ed25519 comb and generic ones
+                at 2, one nvcc each, all started together); prints build
+                seconds and
                 ptxas' registers / stack / spills / shared bytes.
 2. comb       — the P-256 comb kernel against its plain-torch version at
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
@@ -61,6 +62,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 library (4 threads a signature) and the build at 2.
 10. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
+11. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+                (4 threads a signature) and the build at 2.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -882,6 +885,7 @@ def main() -> int:
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+        from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
         from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
 
         timed("generic_groups", group_phase, "generic_groups", "cuda_ecdsa",
@@ -891,6 +895,9 @@ def main() -> int:
               report)
         timed("comb_groups", group_phase, "comb_groups", "cuda_comb", cc,
               cc.ecdsa_verify_comb_plain, recs["comb"], report)
+        timed("ed_comb_groups", group_phase, "ed_comb_groups",
+              "cuda_ed25519", ced, ced.eddsa_verify_comb_plain,
+              recs["ed_comb"], report)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds,

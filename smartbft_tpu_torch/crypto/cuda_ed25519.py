@@ -13,8 +13,10 @@ registration; R arrives with every signature and is checked in the kernel.
 
 Tables are uint32 Montgomery words shaped ``(npad, 256, 3, 8)``: affine
 (X, Y, T = x·y) with Z = 1 implicit, entry 0 the identity (0, 1, 0).  The
-TPU kernel's split-byte bf16 rows and one-hot matmul select are not
-carried over: a lookup is a direct load ``btab[digit]`` /
+CUDA kernel reads the same words as plain numbers, the extended point
+(x·R : y·R : R : x·y·R) with R = 2^256 ≡ 38 (mod p), so neither side
+converts them.  The TPU kernel's split-byte bf16 rows and one-hot matmul
+select are not carried over: a lookup is a direct load ``btab[digit]`` /
 ``qtab[kidx][digit]``.  :func:`from_jax_tables` (shared with P-256, whose
 96-row layout is the same) carries the JAX package's tables over.
 
@@ -203,18 +205,28 @@ def eddsa_verify_comb_plain(s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=1)
-def _lib():
-    lib = csrc.load("cuda_ed25519")
+@functools.lru_cache(maxsize=None)
+def _lib(name: str = "cuda_ed25519"):
+    """The kernel library the wrapper loads, or a build of the same source
+    with another group size (a name in :data:`csrc.VARIANTS`)."""
+    lib = csrc.load(name)
     vp = ctypes.c_void_p
     lib.smartbft_ed_comb_verify.restype = ctypes.c_int
     lib.smartbft_ed_comb_verify.argtypes = [vp] * 8 + [ctypes.c_int, vp,
                                                        ctypes.c_int, vp]
+    lib.smartbft_ed_comb_group.restype = ctypes.c_int
+    lib.smartbft_ed_comb_group.argtypes = []
     return lib
 
 
-def eddsa_verify_comb_cuda(s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
-    """Launch the comb kernel on CUDA tensors (shapes as the plain one)."""
+def group_size(name: str = "cuda_ed25519") -> int:
+    """Threads per signature of the kernel library ``name``."""
+    return _lib(name).smartbft_ed_comb_group()
+
+
+def launch(lib: str, s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
+    """Check the CUDA tensors (shapes as the plain version's), then launch
+    the kernel of the library ``lib`` (see :func:`_lib`); counts nothing."""
     bsz, dev = s.shape[0], s.device
     for a, name in zip((s, h, rx, ry), ("s", "h", "rx", "ry")):
         _check_bytes(a, name, bsz, dev)
@@ -230,12 +242,19 @@ def eddsa_verify_comb_cuda(s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
     if bsz == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().smartbft_ed_comb_verify(
+    rc = _lib(lib).smartbft_ed_comb_verify(
         s.data_ptr(), h.data_ptr(), rx.data_ptr(), ry.data_ptr(),
         ok.data_ptr(), kidx.data_ptr(), btab.data_ptr(), qtab.data_ptr(),
         qtab.shape[0], out.data_ptr(), bsz, stream)
     csrc.check(rc, "ed_comb_verify")
-    LAUNCHES.add(bsz)
+    return out
+
+
+def eddsa_verify_comb_cuda(s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
+    """Launch the comb kernel on CUDA tensors (shapes as the plain one)."""
+    out = launch("cuda_ed25519", s, h, rx, ry, ok, kidx, btab, qtab)
+    if out.numel():
+        LAUNCHES.add(out.numel())
     return out
 
 

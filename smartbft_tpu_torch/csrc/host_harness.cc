@@ -1,13 +1,14 @@
 // Host build of the kernels' headers for the CPU tests: g++ compiles the
 // same field, curve and per-lane verify routines that the CUDA kernels run
 // (p256_field.cuh, p256_group.cuh, p256_comb_group.cuh, ed25519_field.cuh,
-// ed25519_group.cuh, over field256.cuh),
+// ed25519_group.cuh, ed25519_comb_group.cuh, over field256.cuh),
 // and exposes them through a C interface so Python can hold them against
 // integer arithmetic before any time is spent on the card.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libkernels_host.so host_harness.cc
 #include <vector>
 
+#include "ed25519_comb_group.cuh"
 #include "ed25519_field.cuh"
 #include "ed25519_group.cuh"
 #include "p256_comb_group.cuh"
@@ -114,6 +115,31 @@ void ed_verify_group(int n, const uint32_t* s, const uint32_t* h,
       for (int loc = 0; loc < kSigs; ++loc)
         for (int rank = 0; rank < G; ++rank)
           res[loc] |= edg::stage<G>(id, rank, sh[loc], in[loc]);
+    for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
+      out[base + loc] = res[loc];
+  }
+}
+
+template <int G>
+void ed_comb_group(int n, const uint32_t* s, const uint32_t* h,
+                   const uint32_t* rx, const uint32_t* ry, const int32_t* ok,
+                   const int32_t* kidx, const uint32_t* btab,
+                   const uint32_t* qtab, int nkeys, uint32_t* out) {
+  constexpr int kSigs = edc::kSigsPerBlock;
+  std::vector<edc::Shared> sh(kSigs);
+  for (int base = 0; base < n; base += kSigs) {
+    edc::In in[kSigs];
+    uint32_t res[kSigs] = {};
+    for (int loc = 0; loc < kSigs; ++loc) {
+      int src = base + loc < n ? base + loc : n - 1;
+      size_t off = 8 * (size_t)src;
+      in[loc] = edc::lane_in(s + off, h + off, rx + off, ry + off, ok[src],
+                             kidx[src], btab, qtab, nkeys);
+    }
+    for (int id = 0; id < edc::kStages; ++id)
+      for (int loc = 0; loc < kSigs; ++loc)
+        for (int rank = 0; rank < G; ++rank)
+          res[loc] |= edc::stage<G>(id, rank, sh[loc], in[loc]);
     for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
       out[base + loc] = res[loc];
   }
@@ -292,6 +318,21 @@ void edh_comb_verify(int n, const uint32_t* s, const uint32_t* h,
   }
 }
 
+// the comb group kernel's program (ed25519_comb_group.cuh) for a group of
+// g = 1, 2 or 4 ranks, serialised as p256h_ecdsa_verify_group's
+void edh_comb_verify_group(int g, int n, const uint32_t* s, const uint32_t* h,
+                           const uint32_t* rx, const uint32_t* ry,
+                           const int32_t* ok, const int32_t* kidx,
+                           const uint32_t* btab, const uint32_t* qtab,
+                           int nkeys, uint32_t* out) {
+  switch (g) {
+    case 1: ed_comb_group<1>(n, s, h, rx, ry, ok, kidx, btab, qtab, nkeys, out); break;
+    case 2: ed_comb_group<2>(n, s, h, rx, ry, ok, kidx, btab, qtab, nkeys, out); break;
+    case 4: ed_comb_group<4>(n, s, h, rx, ry, ok, kidx, btab, qtab, nkeys, out); break;
+    default: break;
+  }
+}
+
 // the generic Ed25519 kernel's lane loop, run sequentially
 void edh_eddsa_verify(int n, const uint32_t* s, const uint32_t* h,
                       const uint32_t* rx, const uint32_t* ry,
@@ -323,6 +364,11 @@ void edh_e_sub(const uint32_t* a, const uint32_t* b, uint32_t* out) {
 
 void edh_e_canon(const uint32_t* a, uint32_t* out) {
   put(out, edg::e_canon(get(a)));
+}
+
+// the comb program's D = 76 z (ed25519_comb_group.cuh)
+void edh_e_mul76(const uint32_t* a, uint32_t* out) {
+  put(out, edc::e_mul76(get(a)));
 }
 
 // the group kernel's program (ed25519_group.cuh) for a group of g = 1, 2

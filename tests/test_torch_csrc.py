@@ -42,6 +42,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_sources_and_flags_target_hopper():
     assert set(csrc.SOURCES) == {"cuda_comb", "cuda_ecdsa", "cuda_ed25519",
                                  "cuda_eddsa"}
+    assert "ed25519_comb_group.cuh" in csrc.HEADERS
     assert "arch=compute_90a,code=sm_90a" in csrc.NVCC_FLAGS
     # every header is a build dependency, and every header a source
     # includes is listed
@@ -74,7 +75,10 @@ def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
     assert report["cuda_ecdsa_g4"]["registers"] == 96
     assert (tmp_path / "build" / "libcuda_ecdsa_g4.so").exists()
     assert set(csrc.VARIANTS) == {"cuda_comb_g4", "cuda_ecdsa_g4",
-                                  "cuda_eddsa_g2"}
+                                  "cuda_ed25519_g2", "cuda_eddsa_g2"}
+    csrc.build(names=["cuda_ed25519_g2"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DED_COMB_GROUP=2" in args and args[-1].endswith("cuda_ed25519.cu")
     csrc.build(names=["cuda_eddsa_g2"], force=True)
     args = (tmp_path / "args").read_text().split()
     assert "-DEDDSA_GROUP=2" in args and args[-1].endswith("cuda_eddsa.cu")

@@ -145,8 +145,10 @@ def _ed_items(n, keys, tag):
     return items
 
 
-@pytest.mark.parametrize("bsz", [1, 130, 2048])
+@pytest.mark.parametrize("bsz", [1, 17, 130, 509, 2048])
 def test_ed_comb_kernel_matches_plain(cuda, bsz):
+    """Ragged batches too: the kernel verifies 16 signatures a block, and
+    the signatures past the batch must neither store nor stall a group."""
     keys = [ed.keygen(b"gpu-ed-%d" % i) for i in range(5)]
     items = _ed_items(max(bsz, 8), keys, "edc")[:bsz]
     reg = ced.Ed25519CombVerifier("cpu").registry
@@ -166,6 +168,32 @@ def test_ed_comb_kernel_matches_plain(cuda, bsz):
     if bsz > 6:
         expect[5] = expect[6] = 0
     assert got.cpu().tolist()[:8] == expect
+
+
+@pytest.mark.parametrize("bsz", [17, 509])
+def test_ed_comb_group_variant_matches_plain(cuda, bsz):
+    """The build at 2 threads a signature (csrc.VARIANTS) gives the plain
+    version's mask, a key index outside the stack and a zero-padded slot
+    among the faults; the library the wrapper loads runs 4."""
+    keys = [ed.keygen(b"gpu-edcv-%d" % i) for i in range(3)]
+    items = _ed_items(bsz, keys, "edcv")
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+    kidx[5] = (kidx[5] + 1) % 3          # wrong key claimed
+    kidx[6], ok[6] = 3, 1                # a zero-padded stack slot
+    kidx[7] = -1                         # outside the stack
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (s8, h8, rx8, ry8, ok, kidx)] + \
+        [torch.from_numpy(ced.b_table()).to(cuda),
+         torch.from_numpy(reg.stacked()).to(cuda)]
+    assert (ced.group_size(), ced.group_size("cuda_ed25519_g2")) == (4, 2)
+    before = ced.LAUNCHES.launches
+    got = ced.launch("cuda_ed25519_g2", *args)
+    assert ced.LAUNCHES.launches == before
+    assert torch.equal(got, ced.eddsa_verify_comb_plain(*args))
+    expect = [int(ed.verify_item(it)) for it in items]
+    expect[5] = expect[6] = expect[7] = 0
+    assert got.cpu().tolist() == expect
 
 
 @pytest.mark.parametrize("bsz", [1, 17, 130, 509])

@@ -1,7 +1,7 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
 ``smartbft_tpu_torch/csrc/p256_field.cuh``, ``p256_group.cuh``,
-``p256_comb_group.cuh``, ``ed25519_field.cuh`` and ``ed25519_group.cuh``
-(through host_harness.cc)
+``p256_comb_group.cuh``, ``ed25519_field.cuh``, ``ed25519_group.cuh`` and
+``ed25519_comb_group.cuh`` (through host_harness.cc)
 and the field, curve and per-lane verify routines and the group kernels'
 stage programs are held against Python integers — arithmetic faults show
 here, before any time on the card."""
@@ -497,9 +497,9 @@ def _ed_pairs(case):
 
 @pytest.mark.parametrize("case", ["seeded", "edges"])
 def test_ed_fold_field_against_integers(lib, case):
-    """e_mul / e_sqr / e_add / e_sub (folds by 38) give a value below 2^256
-    equal to the exact result mod p; e_canon gives the representative
-    below p."""
+    """e_mul / e_sqr / e_add / e_sub (folds by 38) and the comb program's
+    e_mul76 give a value below 2^256 equal to the exact result mod p;
+    e_canon gives the representative below p."""
     out = np.zeros(8, np.uint32)
     p = ed.P
     for x, y in _ed_pairs(case):
@@ -510,6 +510,8 @@ def test_ed_fold_field_against_integers(lib, case):
             assert _i(out) % p == want % p, (fn, x, y)
         lib.edh_e_sqr(_ptr(a), _ptr(out))
         assert _i(out) % p == x * x % p, x
+        lib.edh_e_mul76(_ptr(a), _ptr(out))
+        assert _i(out) % p == 76 * x % p, x
         lib.edh_e_canon(_ptr(a), _ptr(out))
         assert _i(out) == x % p, x
 
@@ -587,3 +589,161 @@ def test_ed_group_program_matches_the_plain_version(lib, group):
     assert _ed_group(lib, group, arrays, 27).tolist() == want.tolist()
     one = [a[:1].copy() for a in arrays]
     assert _ed_group(lib, group, one, 1).tolist() == [1]
+
+
+# ---------------------------------------------------------------------------
+# Ed25519 comb group program (ed25519_comb_group.cuh): the tables read as
+# they are stored, and the stage program serialised for g = 1, 2, 4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["base", "key"])
+def test_ed_comb_tables_read_as_extended_points(which):
+    """An entry's Montgomery words (x R, y R, x y R mod p), read as plain
+    numbers with Z = R mod p = 38, are an extended point: T Z = X Y, and
+    (X / Z, Y / Z) is the comb multiple (sum of 2^(32 t) P over the index's
+    bits t) of B or of the negated key."""
+    p = ed.P
+    if which == "base":
+        point, tab = (ed.BX, ed.BY), ced.b_table()
+    else:
+        _, pub = ed.keygen(b"edt-0")
+        x, y = ed.decompress(pub)
+        point, tab = ((p - x) % p, y), ced._build_key_table(pub)
+    z = R % p
+    assert z == 38
+    ints = [[_i(tab[idx, c]) for c in range(3)] for idx in range(256)]
+    assert all(t * z % p == x * y % p for x, y, t in ints)
+    rng = np.random.default_rng(43)
+    sample = [0, 255] + [1 << t for t in range(8)] + \
+        rng.integers(2, 255, 6).tolist()
+    zi = pow(z, -1, p)
+    for idx in sample:
+        k = sum(1 << (32 * t) for t in range(8) if idx >> t & 1)
+        x, y, _ = ints[idx]
+        assert (x * zi % p, y * zi % p) == ed.scalar_mult_int(k, point), idx
+
+
+def _ed_comb_items():
+    """40 votes by three keys (two blocks of 16 and a ragged one of 8) with
+    _ed_lanes()'s faults: corrupted S (lane 2), tampered message (3, and 37
+    in the ragged block), S >= L (4), an undecodable R (5)."""
+    items = _ed_lanes()
+    keys = [ed.keygen(b"edh-%d" % i) for i in range(3)]
+    for i in range(8, 40):
+        priv, pub = keys[i % 3]
+        msg = b"e-%d" % i
+        items.append(ed.make_item(msg, ed.sign_raw(priv, msg), pub))
+    m, sig, pub = items[37]
+    items[37] = (m + b"-tampered", sig, pub)
+    return items
+
+
+def _signed_by_minus_b(msg):
+    """A valid signature under the key A = -B (secret scalar L - 1): its
+    negated-key table is B's own, the table a lane outside the stack
+    reads, so only the stack check rejects it there."""
+    a_enc = ed.compress(((ed.P - ed.BX) % ed.P, ed.BY))
+    r = 0x1234567
+    r_enc = ed.compress(ed.scalar_mult_int(r, (ed.BX, ed.BY)))
+    s = (r + ed.binding_hash(r_enc, a_enc, msg) * (ed.L - 1)) % ed.L
+    return ed.make_item(msg, r_enc + s.to_bytes(32, "little"), a_enc)
+
+
+@pytest.fixture(scope="module")
+def ed_comb_batch():
+    """The 40 lanes packed, with the key-index faults: a valid signature
+    under the wrong kidx (lane 6), ok = 1 on the zero-padded stack slot
+    (7), kidx outside the stack (8: -1, 9: the stack's size, 10: 1000 on
+    a signature by -B), ok = 0 on a valid signature (11); the expected
+    verdicts (``verify_item``, 0 on those lanes) and the plain-torch
+    version's mask."""
+    import torch
+
+    items = _ed_comb_items()
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+    qtab = reg.stacked()
+    assert qtab.shape[0] == 4 and not qtab[3].any()
+    items[10] = _signed_by_minus_b(b"e-10")
+    other = ced.Ed25519CombVerifier("cpu").registry
+    for a, row in zip((s8, h8, rx8, ry8, ok),
+                      ced.pack_items(items[10:11], other)):
+        a[10] = row[0]
+    assert ok[10] == 1
+    kidx[6] = (kidx[6] + 1) % 3
+    kidx[7], ok[7] = 3, 1
+    kidx[8], kidx[9], kidx[10] = -1, 4, 1000
+    ok[11] = 0
+    truth = [int(ed.verify_item(it)) for it in items]
+    assert [i for i, t in enumerate(truth) if not t] == [2, 3, 4, 5, 37]
+    truth[6:12] = [0] * 6
+    arrays = [s8, h8, rx8, ry8, ok, kidx]
+    plain = ced.eddsa_verify_comb_plain(
+        *[torch.from_numpy(a) for a in (*arrays, ced.b_table(), qtab)])
+    return arrays, qtab, truth, plain.tolist()
+
+
+def _ed_comb(lib, g, arrays, qtab, slots=None):
+    """The one-thread lane loop (g = 0) or the comb group program
+    serialised for a group of g ranks; ``slots`` output words, those past
+    the batch left at 7."""
+    n = len(arrays[4])
+    out = np.full(slots or n, 7, np.uint32)
+    ptrs = [_ptr(a) for a in (*arrays, ced.b_table(), qtab)]
+    if g == 0:
+        lib.edh_comb_verify(n, *ptrs, qtab.shape[0], _ptr(out))
+    else:
+        lib.edh_comb_verify_group(g, n, *ptrs, qtab.shape[0], _ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ed_comb_group_program_over_a_ragged_second_block(lib, group,
+                                                          ed_comb_batch):
+    """The stage program agrees with ``verify_item`` on every lane (valid,
+    corrupted S, tampered message, S >= L, undecodable R, wrong kidx,
+    a zero-padded stack slot with ok = 1, kidx outside the stack, ok = 0
+    on a valid signature), with
+    the one-thread lane and with the plain-torch version, bit for bit; the
+    ragged block's idle slots re-run the last signature and store
+    nothing."""
+    arrays, qtab, truth, plain = ed_comb_batch
+    out = _ed_comb(lib, group, arrays, qtab, slots=48)
+    assert out[:40].tolist() == truth == plain
+    assert out[40:].tolist() == [7] * 8
+    assert _ed_comb(lib, 0, arrays, qtab).tolist() == truth
+
+
+@pytest.fixture(scope="module")
+def ed_comb_plain_batch(ed_comb_batch):
+    """The 40 lanes plus 8 seeded rows with ok = 1 and kidx any of -1 .. 4:
+    four with random S, h, rx, ry (R almost surely off the curve), four
+    with lane 0's R (on the curve) and random S and h; the plain-torch
+    version's mask."""
+    import torch
+
+    arrays, qtab, _, _ = ed_comb_batch
+    rng = np.random.default_rng(47)
+    extra = [rng.integers(0, 256, (8, 32), np.uint8) for _ in range(4)]
+    for a in (2, 3):
+        extra[a][4:] = arrays[a][0]
+    arrays = [np.concatenate([a, z]) for a, z in zip(arrays[:4], extra)] + [
+        np.concatenate([arrays[4], np.ones(8, np.int32)]),
+        np.concatenate([arrays[5], rng.integers(-1, 5, 8).astype(np.int32)])]
+    want = ced.eddsa_verify_comb_plain(
+        *[torch.from_numpy(a) for a in (*arrays, ced.b_table(), qtab)])
+    return arrays, qtab, want.tolist()
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ed_comb_group_program_matches_the_plain_version(lib, group,
+                                                         ed_comb_plain_batch):
+    """On the seeded rows too (values at or above p, S at or above L: the
+    host checks those), the stage program's verdicts equal the plain-torch
+    version's and the one-thread lane's, and so does a batch of one."""
+    arrays, qtab, want = ed_comb_plain_batch
+    assert _ed_comb(lib, group, arrays, qtab).tolist() == want
+    assert _ed_comb(lib, 0, arrays, qtab).tolist() == want
+    one = [a[:1].copy() for a in arrays]
+    assert _ed_comb(lib, group, one, qtab).tolist() == want[:1] == [1]

@@ -302,6 +302,18 @@ def test_ptx_fold_product_and_square_mod_2p255_19(kind):
 
 
 @pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_fold_by_76_mod_2p255_19(kind):
+    """The comb program's D = 76 z (``e_mul76`` of ed25519_comb_group.cuh,
+    C++ over the chains above with no asm of its own): e_add(z, z), then
+    e_fold of the 512-bit value with 2 z as its high half."""
+    assert "asm(" not in (CSRC / "ed25519_comb_group.cuh").read_text()
+    for x in sorted({x for x, _ in _ed_cases(kind)}):
+        z2 = e_addsub("e_add", _words(x), _words(x))
+        got = _num(e_fold([0] * 8 + z2))
+        assert got < R and got % EP == 76 * x % EP, x
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
 def test_ptx_fold_add_and_sub_mod_2p255_19(kind):
     for x, y in _ed_cases(kind):
         for name, want in (("e_add", x + y), ("e_sub", x - y)):
