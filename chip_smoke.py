@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
-                (four, sm_90a, and the P-256 comb and generic kernels at 4
+                (five, sm_90a, and the P-256 comb and generic kernels at 4
                 threads a signature and the Ed25519 comb and generic ones
                 at 2, one nvcc each, all started together); prints build
                 seconds and
@@ -34,8 +34,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 libraries may differ, are left out.
 5. ed_generic — the same for the generic Ed25519 kernel, on keys outside
                 the registry plus undecodable public keys.
-6. e2e        — the main path through the user entry points (Keyring ->
-                P256CryptoProvider / Ed25519CryptoProvider -> testing.App /
+6. bls        — the BLS12-381 pairing kernel against its plain version,
+                bit for bit, and against the expected verdicts of a seeded
+                rejection matrix, at 2048 and at 128 lanes (wrong
+                message, wrong key, a signature moved by the generator, a
+                signature that does not decode, an aggregated quorum, an
+                aggregate missing one signer, ok = 0 garbage lanes,
+                zero-padded lanes), held to ``bls12381.verify_item`` on
+                every rejection lane and a seeded sample of valid ones.
+7. e2e        — the main path through the user entry points (Keyring ->
+                P256CryptoProvider / Ed25519CryptoProvider /
+                BlsCryptoProvider -> testing.App /
                 Consensus): the n=64 deployment (request batch 500,
                 pipeline depth 16, group-commit WAL, one shared dedupe
                 coalescer) commits a 32-decision burst.  P-256: on the comb
@@ -44,25 +53,29 @@ Phases, one JSON line each; any failure exits non-zero:
                 earlier memberships have filled, so its waves take the
                 generic kernel (cell B).  Ed25519 (BASELINE configs [3]):
                 the same two cells on a fresh
-                ``TorchVerifyEngine(scheme=ed25519)`` (cells C and D).  All
-                four launch counters are zeroed just before each cell's run
-                and read just after; a cell fails if any kernel but its own
-                launched.
-7. kernels    — one line with the four kernels: launches in their cell,
+                ``TorchVerifyEngine(scheme=ed25519)`` (cells C and D).
+                BLS12-381 aggregate votes (BASELINE configs [4]): the same
+                deployment on ``TorchVerifyEngine(scheme=bls12381)``, every
+                key with a proof of possession passed as ``pops`` (cell E);
+                it reports lanes per decision and the aggregated lanes
+                among them.  All five launch counters are zeroed just
+                before each cell's run and read just after; a cell fails if
+                any kernel but its own launched.
+8. kernels    — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.
-8. generic_groups — the generic P-256 kernel at each group size (threads
+9. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-9. ed_generic_groups — the same for the generic Ed25519 kernel: the
+10. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-10. comb_groups — the same for the P-256 comb kernel: the library (8
+11. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-11. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+12. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
 
 The last two lines are the card's name and power limit as nvidia-smi
@@ -92,10 +105,14 @@ IMAD_PER_SM_CLOCK = 64
 #: (8 wide products); mod p it needs no multiply, since n0inv = 1 and the
 #: words of p are 0, 1 and 2^32 - 1, so q*p is shifts and subtractions.
 #: Mod the Ed25519 prime 2^255 - 19 the reduction is a fold, the high
-#: eight words times 38 into the low eight: 8 wide products.
+#: eight words times 38 into the low eight: 8 wide products.  Mod the
+#: 381-bit BLS12-381 p (12 words, CIOS): 144 wide products for a*b, 78 for
+#: a*a, and per word q (one) and q*p (12 wide products) to reduce.
 IMADS = {"p_mul": 2 * 64, "p_sqr": 2 * 36,
          "n_mul": 2 * 64 + 8 * (1 + 2 * 8), "n_sqr": 2 * 36 + 8 * (1 + 2 * 8),
-         "ed_mul": 2 * 64 + 2 * 8, "ed_sqr": 2 * 36 + 2 * 8}
+         "ed_mul": 2 * 64 + 2 * 8, "ed_sqr": 2 * 36 + 2 * 8,
+         "b381_mul": 2 * 144 + 12 * (1 + 2 * 12),
+         "b381_sqr": 2 * 78 + 12 * (1 + 2 * 12)}
 #: HBM3 bandwidth of an H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
@@ -496,13 +513,129 @@ def phase_ed_generic(rng):
     return records
 
 
+# ---------------------------------------------------------------------------
+# BLS12-381 batches
+# ---------------------------------------------------------------------------
+
+
+def make_bls_batch(bsz: int, keys, rng, bls, tag: str, nfault: int):
+    """BLS12-381 lanes: lane i is key i % len(keys) signing message
+    i // len(keys), then trailing zero lanes.  ``nfault`` seeded lanes get
+    one of seven faults: 0 a tampered message, 1 the next key, 2 the
+    signature plus the generator (in G1, wrong), 3 a flipped byte (does not
+    decode to a G1 point), 4 the aggregate of the first 43 votes on the
+    lane's message (a quorum, valid), 5 the same aggregate with one
+    signature left out (invalid), 6 random bytes (ok = 0).  Returns
+    (items, expected verdict per lane, faulted lanes by kind, number of
+    zero lanes)."""
+    nk = len(keys)
+    npad = 64 if bsz > 128 else 16
+    real = bsz - npad
+    votes = []
+    for i in range(real):
+        sk, pk = keys[i % nk]
+        msg = f"{tag}-{i // nk}".encode()
+        votes.append((msg, bls.sign(sk, msg), pk))
+    items = list(votes)
+    quorum = 43
+    faults: dict = {}
+    for j, lane in enumerate(rng.choice(real, size=nfault, replace=False)):
+        lane, kind = int(lane), j % 7
+        msg, sig, pub = items[lane]
+        first = (lane // nk) * nk
+        if first + quorum > real:
+            first = 0
+        group = votes[first:first + quorum]
+        if kind == 0:
+            msg = msg + b"-tampered"
+        elif kind == 1:
+            pub = keys[(lane + 1) % nk][1]
+        elif kind == 2:
+            sig = bls.serialize_g1(bls.g1_add_affine(
+                bls.deserialize_g1(sig), (bls.G1X, bls.G1Y)))
+        elif kind == 3:
+            sig = sig[:7] + bytes([sig[7] ^ 1]) + sig[8:]
+        elif kind == 4:
+            msg, sig, pub = bls.aggregate_items(group)
+        elif kind == 5:
+            msg = group[0][0]
+            sig = bls.aggregate_sigs([g[1] for g in group[1:]])
+            pub = bls.aggregate_pubs([g[2] for g in group])
+        else:
+            sig, pub = rng.bytes(bls.SIG_BYTES), rng.bytes(bls.PUB_BYTES)
+        items[lane] = (msg, sig, pub)
+        faults.setdefault(kind, []).append(lane)
+    bad = {i for kind, lanes in faults.items() if kind != 4 for i in lanes}
+    truth = [i not in bad for i in range(real)] + [False] * npad
+    return items, truth, faults, npad
+
+
+def phase_bls(rng, keys):
+    """The pairing kernel at 2048 and at 128 lanes against its plain
+    version, bit for bit, and against the expected verdicts, held to
+    ``bls12381.verify_item`` on every faulted lane and a seeded sample of
+    valid ones."""
+    import numpy as np
+    import torch
+
+    from smartbft_tpu_torch.crypto import bls12381 as bls
+    from smartbft_tpu_torch.crypto import cuda_bls as cbl
+
+    dev = torch.device("cuda")
+    records = {}
+    for bsz, nfault in ((2048, 42), (128, 14)):
+        items, truth, faults, npad = make_bls_batch(
+            bsz, keys, rng, bls, f"bls{bsz}", nfault)
+        faulted = sorted(i for lanes in faults.values() for i in lanes)
+        valid = [i for i in range(len(items)) if truth[i]
+                 and i not in faulted]
+        sample = faulted + [int(i) for i in rng.choice(valid, 24,
+                                                       replace=False)]
+        for i in sample:
+            if bls.verify_item(items[i]) != truth[i]:
+                fail(f"bls B={bsz}: verify_item disagrees with lane {i}")
+        arrays = [np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
+                  for a in cbl.verify_words(items)]
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = cbl.bls_verify(*args)
+        torch.cuda.synchronize()
+        got_l = got.cpu().tolist()
+        if got_l != [int(t) for t in truth]:
+            bad = [i for i, (a, b) in enumerate(zip(got_l, truth)) if a != b]
+            fail(f"bls B={bsz}: mask differs from the expected verdicts at "
+                 f"lanes {bad[:16]}")
+        t0 = time.perf_counter()
+        plain = cbl.bls_verify_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = round(1e3 * (time.perf_counter() - t0), 3)
+        plain_l = plain.cpu().tolist()
+        if plain_l != got_l:
+            bad = [i for i, (a, b) in enumerate(zip(got_l, plain_l))
+                   if a != b]
+            fail(f"bls B={bsz}: kernel and plain masks differ at lanes "
+                 f"{bad[:16]}")
+        rec = {"lanes": bsz, "accepted": sum(got_l),
+               "rejected": bsz - sum(got_l),
+               "max_abs_err": max(abs(a - b) for a, b in zip(got_l, plain_l)),
+               "plain_ms": plain_ms, "args": args}
+        records[bsz] = rec
+        emit({"phase": "bls", "ok": True, "B": bsz,
+              "faults": {str(k): len(v) for k, v in sorted(faults.items())},
+              "verify_item_lanes": len(sample),
+              "ok_lanes": int(arrays[-1].sum()),
+              **{k: v for k, v in rec.items() if k != "args"}})
+    return records
+
+
 async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
-                      pipeline: int, wal_root: str, tag: str):
+                      pipeline: int, wal_root: str, tag: str, pops=None):
     """One n-replica deployment over a shared engine: commit ``decisions``
-    x ``batch`` requests; returns the run's measurements."""
-    from smartbft_tpu_torch.crypto import ed25519
+    x ``batch`` requests; returns the run's measurements.  ``pops``: the
+    proofs of possession a BLS12-381 provider is given."""
+    from smartbft_tpu_torch.crypto import bls12381, ed25519
     from smartbft_tpu_torch.crypto.provider import (
         AsyncBatchCoalescer,
+        BlsCryptoProvider,
         Ed25519CryptoProvider,
         P256CryptoProvider,
     )
@@ -518,8 +651,12 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
 
     n = len(node_ids)
     requests = decisions * batch
-    provider = (Ed25519CryptoProvider if engine.scheme is ed25519
-                else P256CryptoProvider)
+    if engine.scheme is bls12381:
+        def provider(ring, **kw):
+            return BlsCryptoProvider(ring, pops=pops, **kw)
+    else:
+        provider = (Ed25519CryptoProvider if engine.scheme is ed25519
+                    else P256CryptoProvider)
 
     def cfg(i):
         return dataclasses.replace(
@@ -593,19 +730,21 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
 
 
 def launch_counters() -> dict:
-    """The four kernels' launch counters, by the name each cell uses."""
+    """The five kernels' launch counters, by the name each cell uses."""
+    from smartbft_tpu_torch.crypto import cuda_bls as cbl
     from smartbft_tpu_torch.crypto import cuda_comb as cc
     from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
     from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
     from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
 
     return {"comb": cc.LAUNCHES, "generic": ce.LAUNCHES,
-            "ed_comb": ced.LAUNCHES, "ed_generic": cgd.LAUNCHES}
+            "ed_comb": ced.LAUNCHES, "ed_generic": cgd.LAUNCHES,
+            "bls": cbl.LAUNCHES}
 
 
 def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
-               wal_root, tag):
-    """One cell of the main path.  All four launch counters and the
+               wal_root, tag, pops=None):
+    """One cell of the main path.  All five launch counters and the
     engine's stats are zeroed just before the run and read just after it;
     the cell must commit, keep every ledger equal, stay off the host, and
     launch ``kernel`` and no other."""
@@ -618,7 +757,7 @@ def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
     for c in counters.values():
         c.reset()
     run = asyncio.run(run_cluster(engine, rings, ids, decisions, batch,
-                                  pipeline, wal_root, tag))
+                                  pipeline, wal_root, tag, pops))
     counts = {k: (c.launches, c.lanes) for k, c in counters.items()}
     stats, rungs = engine.stats, dict(engine.rung_launches)
 
@@ -640,7 +779,7 @@ def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
     if lanes != stats.slots_used or lanes < stats.sigs_verified:
         fail(f"e2e {tag}: kernel lanes {lanes} do not cover the engine's "
              f"{stats.sigs_verified} signatures in {stats.slots_used} slots")
-    route = "generic" if kernel.endswith("generic") else "comb"
+    route = "comb" if kernel in ("comb", "ed_comb") else "generic"
     if engine.route_launches != {"comb": 0, "generic": 0,
                                  route: counts[kernel][0]}:
         fail(f"e2e {tag}: engine routes {engine.route_launches} disagree "
@@ -709,11 +848,124 @@ def phase_e2e(wal_root, scheme, n=64, batch=500, pipeline=16,
     return {kernels[0]: run_1, kernels[1]: run_2}
 
 
+def phase_e2e_bls(wal_root, n=64, batch=500, pipeline=16, decisions=32):
+    """Cell E: the A-D deployment with BLS12-381 aggregate votes
+    (BASELINE configs [4]) on one engine; every key's proof of possession
+    is passed as ``pops``.  Counts the lanes the engine verified in the
+    run and the aggregated ones among them (a lane whose key is not a
+    member's is a quorum's aggregate)."""
+    import threading
+
+    from smartbft_tpu_torch.crypto import bls12381 as bls
+    from smartbft_tpu_torch.crypto.provider import Keyring, TorchVerifyEngine
+
+    ids = list(range(1, n + 1))
+    rings = Keyring.generate(ids, seed=b"bench-tput", scheme=bls)
+    ring = rings[ids[0]]
+    pops = {i: bls.pop_prove(rings[i].private_key, rings[i].public_keys[i])
+            for i in ids}
+    engine = TorchVerifyEngine(device="cuda", scheme=bls)
+    warm = bls.make_item(b"warm", bls.sign_raw(ring.private_key, b"warm"),
+                         ring.public_keys[ids[0]])
+    t0 = time.perf_counter()
+    engine.prewarm_shapes(warm)
+    prewarm_s = time.perf_counter() - t0
+    members = set(ring.public_keys.values())
+    tally = {"lanes": 0, "aggregated": 0}
+    lock = threading.Lock()
+    verify = engine.verify
+
+    def counted(items):
+        with lock:
+            tally["lanes"] += len(items)
+            tally["aggregated"] += sum(it[2] not in members for it in items)
+        return verify(items)
+
+    engine.verify = counted
+    run = drive_cell(engine, "bls", rings, ids, decisions, batch, pipeline,
+                     wal_root, "e", pops=pops)
+    run.update({
+        "lanes": tally["lanes"], "aggregated_lanes": tally["aggregated"],
+        "lanes_per_decision": round(tally["lanes"] / run["decisions"], 3),
+        "aggregated_lanes_per_decision": round(
+            tally["aggregated"] / run["decisions"], 3),
+    })
+    emit({
+        "phase": "e2e", "ok": True, "scheme": "bls12381",
+        "prewarm_s": round(prewarm_s, 2),
+        "deployment": {"nodes": n, "request_batch_max_count": batch,
+                       "pipeline_depth": pipeline, "wal_group_commit": True,
+                       "shared_dedupe_coalescer": True, "scheme": "bls12381",
+                       "proofs_of_possession": len(pops)},
+        "e_bls_aggregate": run,
+    })
+    return {"bls": run}
+
+
+def bls_kernel_row(rec, cell, clock_hz, sms):
+    """The pairing kernel's row of the kernels line: time per launch at
+    every rung cell E used and at 16384 (the 2048-lane batch eight times
+    over), the plain version's time at the main rung, and the bound."""
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_bls as cbl
+
+    args16 = [a.repeat(8, *([1] * (a.dim() - 1))) for a in rec[2048]["args"]]
+    rung = cell["main_rung"]
+    args_r = first_lanes(args16, rung)
+    ms_by_rung = {}
+    for r in cell["rung_launches"]:
+        args_b = first_lanes(args16, int(r))
+        ms_by_rung[r] = round(time_ms(lambda: cbl.bls_verify(*args_b), 3), 4)
+    ms_16k = time_ms(lambda: cbl.bls_verify(*args16), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cbl.bls_verify_plain(*args_r)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(cbl.bls_verify(*args_r), want):
+        fail(f"bls_verify: kernel and plain masks differ at rung {rung}")
+    # a lane reads 8 values of 48 bytes and ok, and writes its verdict;
+    # the constant table is read once
+    lane_bytes = 8 * 48 + 4 + 4
+    table_bytes = cbl.device_table(args_r[0].device).numel() * 4
+    ops_r, ops_16k = cbl.mont_ops(*args_r), cbl.mont_ops(*args16)
+    b_rung, by = bound(ops_r, rung * lane_bytes + table_bytes, clock_hz, sms)
+    b_16k, _ = bound(ops_16k, len(args16[0]) * lane_bytes + table_bytes,
+                     clock_hz, sms)
+    return {
+        "name": "bls_verify", "route": "cuda",
+        "source": "smartbft_tpu_torch/csrc/cuda_bls.cu",
+        "replaces": "smartbft_tpu/crypto/bls12381.py:1425",
+        "launches": cell["kernel_launches"]["bls"],
+        "lanes": cell["kernel_lanes"]["bls"],
+        "max_abs_err": max(rec[b]["max_abs_err"] for b in rec),
+        "agree_lanes": sum(rec[b]["lanes"] for b in rec),
+        "rung": rung,
+        "ms": ms_by_rung[str(rung)],
+        "plain_ms": round(plain_ms, 3),
+        "bound_ms": round(b_rung, 4),
+        "bound_by": by,
+        "library_ms": None,
+        "ms_16384": round(ms_16k, 4),
+        "plain_ms_16384": None,
+        "plain_ms_128": rec[128]["plain_ms"],
+        "plain_ms_2048": rec[2048]["plain_ms"],
+        "bound_ms_16384": round(b_16k, 4),
+        "launches_per_decision": cell["launches_per_decision"],
+        "rung_launches": cell["rung_launches"],
+        "ms_by_rung": ms_by_rung,
+        "mont_ops": ops_r, "mont_ops_16384": ops_16k,
+        "imads": imads(ops_r), "imads_16384": imads(ops_16k),
+    }
+
+
 def phase_kernels(recs, cells, clock_hz, sms):
     """The kernels line: per kernel, time at every rung its cell used, at
     the main rung and at 16384 (CUDA events), the plain version's time and
-    the bound.  ``recs``: the kernel phases' records by kernel name;
-    ``cells``: the e2e cells by kernel name."""
+    the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
+    ``recs``: the kernel phases' records by kernel name; ``cells``: the
+    e2e cells by kernel name."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
@@ -785,6 +1037,7 @@ def phase_kernels(recs, cells, clock_hz, sms):
             "mont_ops": ops_r, "mont_ops_16384": ops_16k,
             "imads": imads(ops_r), "imads_16384": imads(ops_16k),
         })
+    rows.append(bls_kernel_row(recs["bls"], cells["bls"], clock_hz, sms))
     return rows
 
 
@@ -857,7 +1110,7 @@ def main() -> int:
     wal_root = os.path.join(HERE, "smartbft_tpu_torch", "_build", "chip_smoke")
     shutil.rmtree(wal_root, ignore_errors=True)
     os.makedirs(wal_root)
-    from smartbft_tpu_torch.crypto import ed25519, p256
+    from smartbft_tpu_torch.crypto import bls12381, ed25519, p256
 
     t_start = time.perf_counter()
     seconds = {}
@@ -876,12 +1129,18 @@ def main() -> int:
         ed_rings = Keyring.generate(ids, seed=b"bench-tput", scheme=ed25519)
         ed_keys = [(ed_rings[i].private_key, ed_rings[i].public_keys[i])
                    for i in ids]
+        bls_rings = Keyring.generate(ids, seed=b"bench-tput",
+                                     scheme=bls12381)
+        bls_keys = [(bls_rings[i].private_key, bls_rings[i].public_keys[i])
+                    for i in ids]
         recs = {"comb": timed("comb", phase_comb, rng, keys),
                 "generic": timed("generic", phase_generic, rng),
                 "ed_comb": timed("ed_comb", phase_ed_comb, rng, ed_keys),
-                "ed_generic": timed("ed_generic", phase_ed_generic, rng)}
+                "ed_generic": timed("ed_generic", phase_ed_generic, rng),
+                "bls": timed("bls", phase_bls, rng, bls_keys)}
         cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
-                 **timed("e2e_ed25519", phase_e2e, wal_root, ed25519)}
+                 **timed("e2e_ed25519", phase_e2e, wal_root, ed25519),
+                 **timed("e2e_bls", phase_e2e_bls, wal_root)}
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce

@@ -6,13 +6,14 @@ Two layouts meet here:
   for the host helpers (:func:`to_limbs`, :func:`from_limbs`,
   :func:`batch_to_limbs`) so values carry across unchanged.
 * The plain-torch field :class:`TorchMont`, which the plain versions of
-  the CUDA kernels run on.  A field element is a ``(..., 16)`` int64
+  the CUDA kernels run on.  A field element is a ``(..., n)`` int64
   tensor of 16-bit limbs: every partial product fits 32 bits, a product
   column of 16 of them fits 36, and the low-half product by N' fits 56, so
   all of Montgomery's arithmetic stays exact in int64 without a carry
-  per partial product.  R = 2**256, exactly as the JAX package and the
-  CUDA kernels (8 x 32-bit limbs) use it, so every Montgomery value is the
-  same number in all three.
+  per partial product.  R = 2**(16 n), exactly as the JAX package and the
+  CUDA kernels (32-bit words) use it, so every Montgomery value is the
+  same number in all three: n = 16 for the 256-bit moduli, 24 for the
+  381-bit BLS12-381 field.
 
 A product is one outer product, one skewed column sum and one carry pass
 per stage (:func:`normalize`), which keeps the op count per field product
@@ -190,42 +191,66 @@ def add_raw(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class TorchMont:
-    """Montgomery arithmetic mod an odd 256-bit modulus, R = 2**256.
+    """Montgomery arithmetic mod an odd modulus below R = 2**(16 nlimbs):
+    16 limbs (R = 2**256) for P-256 and Ed25519, 24 (R = 2**384) for the
+    BLS12-381 base field.
 
-    Every method takes and returns (..., 16) int64 limb tensors; inputs to
-    :meth:`mul` must be below R and their product below N*R (true for any
-    value below N times any value below R), outputs are below N.
+    Every method takes and returns (..., nlimbs) int64 limb tensors; inputs
+    to :meth:`mul` must be below R and their product below N*R (true for
+    any value below N times any value below R), outputs are below N.
+
+    Headroom: a product column sums at most nlimbs partial products below
+    2**32, so below 2**37 for 24 limbs; :meth:`redc` takes a sum of up to
+    ``terms`` such column arrays (2**40 for 9 terms), whose low half times
+    N' stays below 2**61 in int64.
     """
 
-    def __init__(self, modulus: int, device):
-        R = 1 << 256
+    def __init__(self, modulus: int, device, nlimbs: int = NL):
+        self.n = n = nlimbs
+        R = 1 << (LIMB_BITS * n)
+        self.R = R
         self.modulus = modulus
         self.device = torch.device(device)
-        self.N = int_to_limbs(modulus, self.device)
-        self.Np = int_to_limbs((-pow(modulus, -1, R)) % R, self.device)
-        # 2**272 - N over 17 limbs: adding it carries out iff the value >= N
-        self.NC17 = torch.as_tensor(
-            to_limbs((1 << 272) - modulus, NL + 1).astype(np.int64),
-            device=self.device)
-        self.R2 = int_to_limbs((R * R) % modulus, self.device)
-        self.one = int_to_limbs(R % modulus, self.device)
-        self.raw_one = int_to_limbs(1, self.device)
+        self.N = self.limbs(modulus)
+        self.Np = self.limbs((-pow(modulus, -1, R)) % R)
+        # 2**(16(n+1)) - N over n+1 limbs: adding it carries out iff the
+        # value >= N
+        self.NC = torch.as_tensor(
+            to_limbs((1 << (LIMB_BITS * (n + 1))) - modulus, n + 1)
+            .astype(np.int64), device=self.device)
+        self.R2 = self.limbs((R * R) % modulus)
+        self.one = self.limbs(R % modulus)
+        self.raw_one = self.limbs(1)
+
+    def limbs(self, x: int) -> torch.Tensor:
+        """A Python int below R as (nlimbs,) int64 limbs on the device."""
+        return torch.as_tensor(to_limbs(x, self.n).astype(np.int64),
+                               device=self.device)
 
     def encode(self, x: int) -> torch.Tensor:
-        return int_to_limbs((x << 256) % self.modulus, self.device)
+        return self.limbs((x * self.R) % self.modulus)
 
     def _cond_sub(self, t: torch.Tensor) -> torch.Tensor:
-        """(..., 17) value below 2N -> (..., 16) value below N."""
-        d, c = normalize(t + self.NC17, 18)
-        return torch.where((c > 0)[..., None], d[..., :NL], t[..., :NL])
+        """(..., n+1) value below 2N -> (..., n) value below N."""
+        d, c = normalize(t + self.NC, 18)
+        return torch.where((c > 0)[..., None], d[..., :self.n],
+                           t[..., :self.n])
+
+    def redc(self, T: torch.Tensor, terms: int = 1) -> torch.Tensor:
+        """Montgomery reduction (T + m N) / R, below N, of product columns
+        T (..., 2n - 1) that sum ``terms`` products of values below N; the
+        value must stay below N R (``terms`` < R / N)."""
+        n = self.n
+        nb = (n - 1).bit_length()
+        tb = 2 * LIMB_BITS + nb + (terms - 1).bit_length()  # T < 2**tb
+        m_cols = _cols(T[..., :n], self.Np)[..., :n]     # < 2**(tb+16+nb)
+        m, _ = normalize(m_cols, tb + LIMB_BITS + nb + 1)  # m = T N' mod R
+        s = F.pad(T + _cols(m, self.N), (0, 2))          # < 2**(tb+1)
+        s, _ = normalize(s, tb + 2)
+        return self._cond_sub(s[..., n:])                # (T + mN) / R
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        T = _cols(a, b)                                  # < 2**36
-        m_cols = _cols(T[..., :NL], self.Np)[..., :NL]   # < 2**56
-        m, _ = normalize(m_cols, 57)                     # m = T N' mod R
-        s = F.pad(T + _cols(m, self.N), (0, 2))          # < 2**37
-        s, _ = normalize(s, 38)
-        return self._cond_sub(s[..., NL:])               # (T + mN) / R
+        return self.redc(_cols(a, b))
 
     def sqr(self, a: torch.Tensor) -> torch.Tensor:
         return self.mul(a, a)
@@ -233,13 +258,30 @@ class TorchMont:
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a, b = torch.broadcast_tensors(a, b)
         s = F.pad(a + b, (0, 1))
-        both, carry = normalize(torch.stack([s, s + self.NC17]), 19)
-        return torch.where((carry[1] > 0)[..., None], both[1, ..., :NL],
-                           both[0, ..., :NL])
+        both, carry = normalize(torch.stack([s, s + self.NC]), 19)
+        return torch.where((carry[1] > 0)[..., None], both[1, ..., :self.n],
+                           both[0, ..., :self.n])
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a, b = torch.broadcast_tensors(a, b)
         x = a + (LIMB_MASK - b)
-        x = torch.cat([x[..., :1] + 1, x[..., 1:]], dim=-1)  # a - b + 2**256
+        x = torch.cat([x[..., :1] + 1, x[..., 1:]], dim=-1)  # a - b + R
         both, carry = normalize(torch.stack([x, x + self.N]), 19)
         return torch.where((carry[0] > 0)[..., None], both[0], both[1])
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self.sub(torch.zeros_like(a), a)
+
+    def pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a Python-int exponent e > 0, Montgomery in and out:
+        left-to-right square-and-multiply."""
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = self.sqr(acc)
+            if bit == "1":
+                acc = self.mul(acc, a)
+        return acc
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^-1 by Fermat (the modulus is prime); 0 maps to 0."""
+        return self.pow(a, self.modulus - 2)

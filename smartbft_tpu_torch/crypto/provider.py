@@ -4,15 +4,15 @@ The crypto seam of the protocol core:
 
 * :class:`Keyring` — node-id -> public key registry + own private key.
 * :class:`CryptoProvider` / :class:`P256CryptoProvider` /
-  :class:`Ed25519CryptoProvider` — the crypto subset of the
-  Verifier/Signer SPI.  Signing is host-side (one signature per decision;
-  never hot).  Verification goes through a pluggable engine:
+  :class:`Ed25519CryptoProvider` / :class:`BlsCryptoProvider` — the crypto
+  subset of the Verifier/Signer SPI.  Signing is host-side (one signature
+  per decision; never hot).  Verification goes through a pluggable engine:
     - :class:`HostVerifyEngine`  — pure-Python ints; the CPU floor, and
       the breaker's fallback where a caller passes one explicitly.
     - :class:`TorchVerifyEngine` — pads votes into fixed-size lanes and runs
       ONE CUDA kernel launch per flush: the comb kernel for registered keys,
       the generic kernel for a chunk that holds an unregistrable key, for
-      P-256 or Ed25519.
+      P-256 or Ed25519; the pairing kernel for BLS12-381.
 * :class:`AsyncBatchCoalescer` — merges concurrent quorum checks (across
   sequences, replicas and view-change validations) into shared launches,
   with dedupe, per-tag attribution, and the deadline / retry / breaker /
@@ -41,7 +41,8 @@ from ..messages import Proposal, Signature
 from ..types import VerifyPlaneDown, proposal_digest
 from ..utils.memo import LruMemo
 from ..utils.tasks import create_logged_task
-from . import ed25519, p256
+from . import bls12381, ed25519, p256
+from .cuda_bls import bls_verify, verify_words
 from .cuda_comb import CombRegistryFull, CombVerifier
 from .cuda_ecdsa import ecdsa_verify
 from .cuda_ed25519 import Ed25519CombVerifier
@@ -285,19 +286,21 @@ class HostVerifyEngine:
 
 def _generic_launch(kernel, arrays, size: int, device) -> torch.Tensor:
     """One generic-kernel launch on host arrays zero-padded to ``size``
-    lanes (a padding lane fails: zero r, s for P-256, ok = 0 for
-    Ed25519)."""
+    lanes (a padding lane fails: zero r, s for P-256, ok = 0 for Ed25519
+    and BLS12-381)."""
     n = arrays[0].shape[0]
     return kernel(*(torch.from_numpy(np.concatenate(
         [a, np.zeros((size - n,) + a.shape[1:], a.dtype)])).to(device)
         for a in arrays))
 
 
-#: per scheme: the comb verifier (registered keys), and the generic
-#: route's host marshalling and kernel (any key)
+#: per scheme: the comb verifier (registered keys; None for BLS12-381,
+#: whose pairing kernel takes any key), and the generic route's host
+#: marshalling and kernel (any key)
 _ROUTES = {p256: (CombVerifier, p256.verify_bytes, ecdsa_verify),
            ed25519: (Ed25519CombVerifier, ed25519.verify_inputs,
-                     eddsa_verify)}
+                     eddsa_verify),
+           bls12381: (None, verify_words, bls_verify)}
 
 
 class TorchVerifyEngine:
@@ -309,7 +312,10 @@ class TorchVerifyEngine:
     :mod:`.cuda_ecdsa`, for Ed25519 :mod:`.cuda_ed25519` /
     :mod:`.cuda_eddsa`.  That routing is semantics (a key beyond the comb
     registry's 128, or one that does not decode), not error handling: a
-    build or launch error raises to the caller.
+    build or launch error raises to the caller.  BLS12-381 has no comb
+    route: every chunk is one launch of the pairing kernel
+    (:mod:`.cuda_bls`), counted as ``generic``; a lane is one signature or
+    one aggregated quorum.
 
     ``device="cuda"`` is the default and raises when no card is visible;
     ``device="cpu"`` runs the kernels' plain-torch versions (tests).
@@ -324,7 +330,7 @@ class TorchVerifyEngine:
                  scheme=p256, metrics=None):
         """``pad_sizes``: the top rung bounds how much of a large cluster's
         quorum wave one launch absorbs (n=128 -> 10880 signatures).
-        ``scheme``: :mod:`.p256` or :mod:`.ed25519`."""
+        ``scheme``: :mod:`.p256`, :mod:`.ed25519` or :mod:`.bls12381`."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -336,7 +342,7 @@ class TorchVerifyEngine:
         self.scheme = scheme
         comb_cls, self._generic_inputs, self._generic_kernel = _ROUTES[scheme]
         self.pad_sizes = tuple(sorted(pad_sizes))
-        self._comb = comb_cls(self.device)
+        self._comb = comb_cls(self.device) if comb_cls is not None else None
         self._lock = threading.Lock()
         self.stats = VerifyStats(metrics=metrics)
         #: launches per pad rung, and per kernel route ("comb"/"generic")
@@ -362,8 +368,9 @@ class TorchVerifyEngine:
 
     def prewarm_keys(self, pubs) -> None:
         """Register a known key set (e.g. the whole keyring) with the comb
-        registry up front."""
-        self._comb.prewarm_keys(pubs)
+        registry up front (no registry for BLS12-381)."""
+        if self._comb is not None:
+            self._comb.prewarm_keys(pubs)
 
     def prewarm_shapes(self, item, sizes: Optional[Sequence[int]] = None) -> None:
         """Run every pad rung once with copies of ``item`` (a verify item
@@ -376,7 +383,8 @@ class TorchVerifyEngine:
         n = len(items)
         size = self._pad_to(n)
         t0 = time.perf_counter()
-        mask = self._comb.verify(items, size)
+        mask = (self._comb.verify(items, size)
+                if self._comb is not None else None)
         route = "comb"
         if mask is None:
             route = "generic"
@@ -1180,8 +1188,8 @@ class CryptoProvider:
             raise ValueError(f"invalid consenter signature from {signature.signer}")
         return aux
 
-    # batch verification = collect/bind (shared below) + a scheme-overridable
-    # mask step (_verify_items); BLS swaps in its aggregate fast path there
+    # batch verification = collect/bind (shared below) + the mask step
+    # (_verify_items); BLS puts its canonical split around that step
 
     def _verify_items(self, items) -> list[bool]:
         return self.engine.verify(items)
@@ -1274,3 +1282,167 @@ class Ed25519CryptoProvider(CryptoProvider):
     """Ed25519 provider — the alt-curve variant of BASELINE.md configs[3]."""
 
     scheme = ed25519
+
+
+class BlsCryptoProvider(CryptoProvider):
+    """BLS12-381 aggregate provider, BASELINE.json configs[4]: one pairing
+    equation per quorum.
+
+    Same-message aggregation requires every consenter to sign identical
+    bytes, so this provider signs the PROPOSAL DIGEST ONLY; the per-signer
+    auxiliary data (PreparesFrom witness lists) still travels in
+    ``Signature.msg`` but is NOT covered by the signature.  Deployments
+    that rely on authenticated aux for blacklist redemption should use the
+    P-256/Ed25519 providers (or treat redemption as advisory); that is the
+    price of quorum collapse.
+
+    Verification strategy (the FastAggregateVerify shape of the IETF BLS
+    draft): aggregate the batch into ONE kernel lane (sum of G1 sigs, sum
+    of G2 pubkeys); only if that single pairing check fails, verify the
+    signatures one lane each to attribute the bad vote.  Two consequences:
+
+    * **Rogue keys.** Same-message aggregation is sound only when every
+      registered public key has a verified proof of possession (otherwise
+      pk_b = b*g2 - pk_a lets b fabricate a "quorum" containing a vote a
+      never cast).  Pass ``pops`` (signer id -> ``bls12381.pop_prove``
+      output) to enforce this at construction; deployments that omit it
+      MUST verify possession during key registration instead.
+    * **Set-level attestation.** When the aggregate check passes, it
+      attests that the quorum *as a set* signed the digest; the individual
+      ``Signature.value`` byte strings are not separately attested (a relay
+      could offset two of them by equal-and-opposite G1 points without
+      changing the sum).  All quorum-cert validation goes through this
+      batch path, so replicas agree; code that needs a single signature
+      attributable on its own must call :meth:`verify_consenter_sig`, which
+      never aggregates.
+    """
+
+    scheme = bls12381
+
+    def __init__(self, keyring: Keyring, engine=None,
+                 coalesce_window: Optional[float] = None,
+                 coalescer=None, pops: Optional[dict[int, bytes]] = None):
+        super().__init__(keyring, engine, coalesce_window, coalescer)
+        if pops is not None:
+            for nid, pub in keyring.public_keys.items():
+                pop = pops.get(nid)
+                if pop is None or not bls12381.pop_verify(pub, pop):
+                    raise ValueError(
+                        f"missing/invalid proof of possession for node {nid}"
+                    )
+
+    def _signed_bytes(self, msg: bytes) -> bytes:
+        """The digest-only bytes actually covered by the BLS signature."""
+        decoded = decode(ConsenterSigMsg, msg)
+        return encode(ConsenterSigMsg(proposal_digest=decoded.proposal_digest))
+
+    def sign(self, data: bytes) -> bytes:
+        try:
+            data = self._signed_bytes(data)
+        except Exception:
+            pass  # non-consenter payloads (e.g. ViewData) sign as-is
+        return self.scheme.sign_raw(self.keyring.private_key, data)
+
+    def _item(self, signature: Signature):
+        pub = self.keyring.public_keys.get(signature.signer)
+        if pub is None:
+            raise ValueError(f"unknown signer {signature.signer}")
+        try:
+            msg = self._signed_bytes(signature.msg)
+        except Exception:
+            msg = signature.msg
+        return self.scheme.make_item(msg, signature.value, pub)
+
+    def _quorum_minus_one(self) -> int:
+        n = len(self.keyring.public_keys)
+        f = (n - 1) // 3
+        return max(2, (n + f + 1 + 1) // 2 - 1)  # ceil((n+f+1)/2) - 1
+
+    def _canonical_split(self, signatures, items, idxs):
+        """Canonicalized aggregation: the CANONICAL quorum subset, the
+        lowest quorum-1 signer ids present, aggregates into one lane;
+        leftovers get a lane each.
+
+        Cross-replica dedupe: without canonicalization every replica
+        aggregates ITS OWN collected subset, so the aggregated items of two
+        replicas checking the same decision never match and the shared
+        coalescer's dedupe pass cannot collapse them.  Sorting by signer id
+        and capping at quorum-1 makes replicas that hold the same votes
+        produce BYTE-IDENTICAL aggregate items (aggregation is a
+        commutative point sum over the canonical codec's byte encodings),
+        so an n-replica wave dedupes to one lane.
+
+        Returns (lane, chosen_positions, rest_positions) or None when no
+        aggregation applies (<=1 item / mixed messages)."""
+        if len(items) <= 1:
+            return None
+        order = sorted(range(len(items)),
+                       key=lambda p: signatures[idxs[p]].signer)
+        chosen = order[: self._quorum_minus_one()]
+        if len(chosen) <= 1:
+            return None
+        rest = order[len(chosen):]
+        try:
+            lane = self.scheme.aggregate_items([items[p] for p in chosen])
+        except ValueError:
+            return None  # mixed messages / degenerate sums
+        return lane, chosen, rest
+
+    @staticmethod
+    def _merge_split_verdicts(split, results, chosen_results,
+                              n_items) -> list[bool]:
+        """Fan the [lane, rest...] result vector (plus, on lane failure,
+        the per-item re-attribution of the chosen subset) onto positions.
+        Rest verdicts are REUSED either way: a failed canonical lane only
+        costs re-verifying the chosen items, never the whole batch."""
+        _, chosen, rest = split
+        mask = [False] * n_items
+        for j, p in enumerate(rest):
+            mask[p] = results[1 + j]
+        if results[0]:
+            for p in chosen:
+                mask[p] = True
+        else:
+            for j, p in enumerate(chosen):
+                mask[p] = chosen_results[j]
+        return mask
+
+    def verify_consenter_sigs_batch(
+        self, signatures: Sequence[Signature], proposal: Proposal
+    ) -> list:
+        auxes, items, idxs = self._collect(signatures, proposal)
+        split = self._canonical_split(signatures, items, idxs)
+        if split is None:
+            return self._apply_mask(auxes, idxs, self._verify_items(items),
+                                    signatures)
+        lane, chosen, rest = split
+        results = self.engine.verify([lane] + [items[p] for p in rest])
+        chosen_results = None
+        if not results[0]:
+            # canonical lane failed: attribute only the chosen subset
+            chosen_results = self.engine.verify([items[p] for p in chosen])
+        mask = self._merge_split_verdicts(split, results, chosen_results,
+                                          len(items))
+        return self._apply_mask(auxes, idxs, mask, signatures)
+
+    async def verify_consenter_sigs_batch_async(
+        self, signatures: Sequence[Signature], proposal: Proposal
+    ) -> list:
+        auxes, items, idxs = self._collect(signatures, proposal)
+        split = self._canonical_split(signatures, items, idxs)
+        if split is None:
+            return self._apply_mask(auxes, idxs,
+                                    await self._verify_items_async(items),
+                                    signatures)
+        lane, chosen, rest = split
+        results = await self._coalescer.submit(
+            [lane] + [items[p] for p in rest], tag=self.verify_tag
+        )
+        chosen_results = None
+        if not results[0]:
+            chosen_results = await self._coalescer.submit(
+                [items[p] for p in chosen], tag=self.verify_tag
+            )
+        mask = self._merge_split_verdicts(split, results, chosen_results,
+                                          len(items))
+        return self._apply_mask(auxes, idxs, mask, signatures)

@@ -24,7 +24,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "cuda")
 #: kernel library name -> its source in this directory
 SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
-           "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu"}
+           "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu",
+           "cuda_bls": "cuda_bls.cu"}
 #: builds of a source with another compile-time constant, which no wrapper
 #: loads (``chip_smoke.py`` times them beside the library): the P-256 comb
 #: and generic kernels at 4 threads a signature, the Ed25519 comb and
@@ -36,7 +37,7 @@ VARIANTS = {"cuda_comb_g4": ("cuda_comb.cu", ("-DCOMB_GROUP=4",)),
 #: every header; an edit to any of them rebuilds every kernel
 HEADERS = ("field256.cuh", "p256_field.cuh", "p256_group.cuh",
            "p256_comb_group.cuh", "ed25519_field.cuh", "ed25519_group.cuh",
-           "ed25519_comb_group.cuh")
+           "ed25519_comb_group.cuh", "bls381_field.cuh", "bls381_pairing.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -79,21 +80,32 @@ def _stale(name: str) -> bool:
 def parse_ptxas(text: str) -> dict:
     """Registers, stack, spill and static shared-memory bytes of the
     ``__global__`` kernel in an ``-Xptxas -v`` log (the last function
-    reported with registers)."""
-    out = {}
+    reported with registers, whose stack line precedes its register line;
+    the stack lines of the device functions it calls follow it and are
+    summed into ``callee_spill_store_bytes`` / ``callee_spill_load_bytes``
+    where there are any)."""
+    out, frame, callee = {}, {}, [0, 0]
     for line in text.splitlines():
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
-            out.update(stack_bytes=int(m.group(1)),
-                       spill_store_bytes=int(m.group(2)),
-                       spill_load_bytes=int(m.group(3)))
+            frame = dict(stack_bytes=int(m.group(1)),
+                         spill_store_bytes=int(m.group(2)),
+                         spill_load_bytes=int(m.group(3)))
+            if "registers" in out:
+                callee[0] += frame["spill_store_bytes"]
+                callee[1] += frame["spill_load_bytes"]
         m = re.search(r"Used (\d+) registers", line)
         if m:
+            out.update(frame)
+            callee = [0, 0]
             out["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", line)
             if m:
                 out["shared_bytes"] = int(m.group(1))
+    if any(callee):
+        out.update(callee_spill_store_bytes=callee[0],
+                   callee_spill_load_bytes=callee[1])
     return out
 
 

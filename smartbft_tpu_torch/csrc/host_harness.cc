@@ -1,13 +1,17 @@
 // Host build of the kernels' headers for the CPU tests: g++ compiles the
 // same field, curve and per-lane verify routines that the CUDA kernels run
 // (p256_field.cuh, p256_group.cuh, p256_comb_group.cuh, ed25519_field.cuh,
-// ed25519_group.cuh, ed25519_comb_group.cuh, over field256.cuh),
+// ed25519_group.cuh, ed25519_comb_group.cuh, over field256.cuh, and
+// bls381_field.cuh, bls381_pairing.cuh, with their Fp operations counted),
 // and exposes them through a C interface so Python can hold them against
 // integer arithmetic before any time is spent on the card.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libkernels_host.so host_harness.cc
+#include <cstring>
 #include <vector>
 
+#define B381_COUNT_OPS 1
+#include "bls381_pairing.cuh"
 #include "ed25519_comb_group.cuh"
 #include "ed25519_field.cuh"
 #include "ed25519_group.cuh"
@@ -143,6 +147,24 @@ void ed_comb_group(int n, const uint32_t* s, const uint32_t* h,
     for (int loc = 0; loc < kSigs && base + loc < n; ++loc)
       out[base + loc] = res[loc];
   }
+}
+
+b381::Fp12 get12(const uint32_t* src) {
+  b381::Fp12 f;
+  std::memcpy(&f, src, sizeof f);
+  return f;
+}
+
+void put12(uint32_t* dst, const b381::Fp12& f) {
+  std::memcpy(dst, &f, sizeof f);
+}
+
+b381::Fp getb(const uint32_t* src) { return b381::load_fp(src); }
+
+void putb(uint32_t* dst, const b381::Fp& a) { b381::store_fp(dst, a); }
+
+const b381::Consts& consts(const uint32_t* table) {
+  return *reinterpret_cast<const b381::Consts*>(table);
 }
 
 }  // namespace
@@ -385,5 +407,104 @@ void edh_eddsa_verify_group(int g, int n, const uint32_t* s,
     default: break;
   }
 }
+
+// BLS12-381 (bls381_field.cuh, bls381_pairing.cuh).  Fp values are 12
+// words, Fp12 values 12 Fp in the stacked order (a0 re, a0 im, a1 re, ...,
+// b2 im), table the (418, 12) constant table of cuda_bls.const_table.
+
+void blsh_fp_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  putb(out, b381::fp_mul(getb(a), getb(b)));
+}
+
+void blsh_fp_sqr(const uint32_t* a, uint32_t* out) {
+  putb(out, b381::fp_sqr(getb(a)));
+}
+
+void blsh_fp_add(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  putb(out, b381::fp_add(getb(a), getb(b)));
+}
+
+void blsh_fp_sub(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  putb(out, b381::fp_sub(getb(a), getb(b)));
+}
+
+void blsh_fp_inv(const uint32_t* a, uint32_t* out) {
+  putb(out, b381::fp_inv(getb(a)));
+}
+
+void blsh_fp12_mul(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  put12(out, b381::fp12_mul(get12(a), get12(b)));
+}
+
+void blsh_fp12_sqr(const uint32_t* a, uint32_t* out) {
+  put12(out, b381::fp12_sqr(get12(a)));
+}
+
+void blsh_fp12_cyclo_sqr(const uint32_t* a, uint32_t* out) {
+  put12(out, b381::fp12_cyclo_sqr(get12(a)));
+}
+
+void blsh_fp12_inv(const uint32_t* a, uint32_t* out) {
+  put12(out, b381::fp12_inv(get12(a)));
+}
+
+void blsh_fp12_frob(const uint32_t* a, const uint32_t* table,
+                    uint32_t* out) {
+  put12(out, b381::fp12_frob(get12(a), consts(table).frob));
+}
+
+// f * the line (l00, lx, ly: 3 Fp2, 72 words) evaluated at (xp, yp)
+void blsh_mul_line(const uint32_t* f, const uint32_t* line,
+                   const uint32_t* xp, const uint32_t* yp, uint32_t* out) {
+  b381::Fp12 acc = get12(f);
+  b381::Fp2 l[3];
+  std::memcpy(l, line, sizeof l);
+  b381::mul_line(acc, l, getb(xp), getb(yp));
+  put12(out, acc);
+}
+
+// one lane's Miller loop, and the final exponentiation of an Fp12
+void blsh_miller(const uint32_t* table, const uint32_t* lane,
+                 uint32_t* out) {
+  const b381::Fp2 qx{getb(lane + 48), getb(lane + 60)};
+  const b381::Fp2 qy{getb(lane + 72), getb(lane + 84)};
+  put12(out, b381::miller(consts(table), getb(lane), getb(lane + 12),
+                          getb(lane + 24), getb(lane + 36), qx, qy));
+}
+
+void blsh_final_exp(const uint32_t* table, const uint32_t* f,
+                    uint32_t* out) {
+  b381::Fp2 g[5];
+  std::memcpy(g, consts(table).frob, sizeof g);
+  put12(out, b381::final_exp(get12(f), g));
+}
+
+// the kernel's lane loop, run sequentially: the inputs as the kernel's
+void blsh_verify(int n, const uint32_t* table, const uint32_t* sig_x,
+                 const uint32_t* sig_y, const uint32_t* hm_x,
+                 const uint32_t* hm_y, const uint32_t* pk_x0,
+                 const uint32_t* pk_x1, const uint32_t* pk_y0,
+                 const uint32_t* pk_y1, const int32_t* ok, uint32_t* out) {
+  for (int i = 0; i < n; ++i) {
+    if (ok[i] == 0) {
+      out[i] = 0;
+      continue;
+    }
+    const size_t o = (size_t)b381::kWords * i;
+    const b381::Fp2 qx{getb(pk_x0 + o), getb(pk_x1 + o)};
+    const b381::Fp2 qy{getb(pk_y0 + o), getb(pk_y1 + o)};
+    out[i] = b381::verify_lane(consts(table), getb(sig_x + o),
+                               getb(sig_y + o), getb(hm_x + o),
+                               getb(hm_y + o), qx, qy);
+  }
+}
+
+// the Fp products and squarings counted since the last reset
+void blsh_op_counts(unsigned long long* out) {
+  out[0] = b381::op_count().mul;
+  out[1] = b381::op_count().sqr;
+}
+
+void blsh_reset_op_counts() { b381::op_count() = b381::OpCount{0, 0}; }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 """Native (C++) host helpers, loaded via ctypes with Python fallbacks.
 
-The WAL's frame append and CRC32C (``crc32c.cc``, ``wal_frame.cc``) and
-the Ed25519 point decompression (``ed25519_fp.cc``) run in C++.  The
+The WAL's frame append and CRC32C (``crc32c.cc``, ``wal_frame.cc``), the
+Ed25519 point decompression (``ed25519_fp.cc``) and the BLS12-381 group
+arithmetic (``bls381.cc``) run in C++.  The
 library is compiled with ``g++`` on first use into
 ``smartbft_tpu_torch/_build/`` (git-ignored) and cached there; a build
 failure falls back to the pure-Python implementations, so neither the WAL
-nor the Ed25519 host half hard-depends on a toolchain.  (The CUDA kernels
-are built separately, by :mod:`smartbft_tpu_torch.csrc`, and never fall
-back.)
+nor the Ed25519 and BLS12-381 host halves hard-depend on a toolchain.
+(The CUDA kernels are built separately, by :mod:`smartbft_tpu_torch.csrc`,
+and never fall back.)
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _LIB_NAME = "libsmartbft_native.so"
-_SOURCES = ["crc32c.cc", "wal_frame.cc", "ed25519_fp.cc"]
+_SOURCES = ["crc32c.cc", "wal_frame.cc", "bls381.cc", "ed25519_fp.cc"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -95,6 +96,16 @@ def load() -> Optional[ctypes.CDLL]:
             lib.smartbft_ed_decompress.restype = ctypes.c_int
             lib.smartbft_ed_decompress.argtypes = [ctypes.c_char_p,
                                                    ctypes.c_char_p]
+            buf, sz = ctypes.c_char_p, ctypes.c_size_t
+            for name in ("smartbft_bls_g1_mul", "smartbft_bls_g1_mul_glv",
+                         "smartbft_bls_g2_mul"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [buf, sz, buf, ctypes.c_char_p]
+            for name in ("smartbft_bls_g1_sum", "smartbft_bls_g2_sum"):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [buf, sz, ctypes.c_char_p]
             _lib = lib
         except (OSError, AttributeError):
             _lib = None
@@ -165,6 +176,99 @@ def wal_append(fd: int, payload: bytes, crc: int, update_crc: bool,
     if n < 0:
         raise OSError(ctypes.get_errno(), "wal: native append failed")
     return int(n), int(crc_io.value)
+
+
+# ---------------------------------------------------------------------------
+# BLS12-381 group arithmetic (bls381.cc)
+#
+# Points cross the boundary as big-endian byte buffers: G1 affine = x||y
+# (96B), G2 affine = x_c0||x_c1||y_c0||y_c1 (192B); infinity is rc=0.
+# Python-side points use the same representation as crypto/bls12381.py:
+# G1 = (x, y) ints, G2 = ((x0, x1), (y0, y1)), None = infinity.
+# ---------------------------------------------------------------------------
+
+def bls_available() -> bool:
+    return load() is not None
+
+
+def _g1_bytes(pt) -> bytes:
+    if pt is None:
+        return b"\x00" * 96
+    return pt[0].to_bytes(48, "big") + pt[1].to_bytes(48, "big")
+
+
+def _g1_point(rc: int, out) -> Optional[tuple]:
+    if rc == 0:
+        return None
+    raw = bytes(out)
+    return (int.from_bytes(raw[:48], "big"), int.from_bytes(raw[48:96], "big"))
+
+
+def _g2_bytes(pt) -> bytes:
+    if pt is None:
+        return b"\x00" * 192
+    (x0, x1), (y0, y1) = pt
+    return (x0.to_bytes(48, "big") + x1.to_bytes(48, "big")
+            + y0.to_bytes(48, "big") + y1.to_bytes(48, "big"))
+
+
+def _g2_point(rc: int, out) -> Optional[tuple]:
+    if rc == 0:
+        return None
+    raw = bytes(out)
+    c = [int.from_bytes(raw[i * 48:(i + 1) * 48], "big") for i in range(4)]
+    return ((c[0], c[1]), (c[2], c[3]))
+
+
+def _scalar(k: int) -> bytes:
+    return k.to_bytes(max(1, (k.bit_length() + 7) // 8), "big")
+
+
+def bls_g1_mul(k: int, pt) -> Optional[tuple]:
+    """k * P on G1 (affine ints); None = infinity.  k taken as given."""
+    scalar = _scalar(k)
+    out = ctypes.create_string_buffer(96)
+    rc = load().smartbft_bls_g1_mul(scalar, len(scalar), _g1_bytes(pt), out)
+    return _g1_point(rc, out.raw)
+
+
+def bls_g1_mul_torsion(k: int, pt) -> Optional[tuple]:
+    """GLV-accelerated k * P, ONLY for P in the r-torsion subgroup (a
+    hash-to-curve output or a validated key).  The endomorphism identity
+    phi(P) = lambda*P fails off the subgroup, so subgroup checks and
+    cofactor clearing must call :func:`bls_g1_mul` instead."""
+    scalar = _scalar(k)
+    out = ctypes.create_string_buffer(96)
+    rc = load().smartbft_bls_g1_mul_glv(scalar, len(scalar), _g1_bytes(pt),
+                                        out)
+    return _g1_point(rc, out.raw)
+
+
+def bls_g1_sum(points) -> Optional[tuple]:
+    pts = [p for p in points if p is not None]
+    if not pts:
+        return None
+    blob = b"".join(_g1_bytes(p) for p in pts)
+    out = ctypes.create_string_buffer(96)
+    rc = load().smartbft_bls_g1_sum(blob, len(pts), out)
+    return _g1_point(rc, out.raw)
+
+
+def bls_g2_mul(k: int, pt) -> Optional[tuple]:
+    scalar = _scalar(k)
+    out = ctypes.create_string_buffer(192)
+    rc = load().smartbft_bls_g2_mul(scalar, len(scalar), _g2_bytes(pt), out)
+    return _g2_point(rc, out.raw)
+
+
+def bls_g2_sum(points) -> Optional[tuple]:
+    pts = [p for p in points if p is not None]
+    if not pts:
+        return None
+    blob = b"".join(_g2_bytes(p) for p in pts)
+    out = ctypes.create_string_buffer(192)
+    rc = load().smartbft_bls_g2_sum(blob, len(pts), out)
+    return _g2_point(rc, out.raw)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,23 @@ def test_parse_ptxas_reads_static_shared_memory():
         "registers": 168, "shared_bytes": 22912}
 
 
+def test_parse_ptxas_keeps_the_kernel_frame_and_sums_callee_spills():
+    """A kernel that calls device functions: ptxas reports the kernel's
+    frame before its register line and each callee's after it; the
+    kernel's frame stays, the callees' spills are summed apart."""
+    log = PTXAS + (
+        "ptxas info    : Function properties for _ZN4b3816fp_mulE\n"
+        "    0 bytes stack frame, 136 bytes spill stores, 136 bytes spill "
+        "loads\n"
+        "ptxas info    : Function properties for _ZN4b3818fp12_mulE\n"
+        "    0 bytes stack frame, 756 bytes spill stores, 932 bytes spill "
+        "loads\n")
+    assert csrc.parse_ptxas(log) == {
+        "stack_bytes": 512, "spill_store_bytes": 8, "spill_load_bytes": 16,
+        "registers": 180, "callee_spill_store_bytes": 892,
+        "callee_spill_load_bytes": 1068}
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -41,8 +58,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_sources_and_flags_target_hopper():
     assert set(csrc.SOURCES) == {"cuda_comb", "cuda_ecdsa", "cuda_ed25519",
-                                 "cuda_eddsa"}
+                                 "cuda_eddsa", "cuda_bls"}
     assert "ed25519_comb_group.cuh" in csrc.HEADERS
+    assert {"bls381_field.cuh", "bls381_pairing.cuh"} <= set(csrc.HEADERS)
     assert "arch=compute_90a,code=sm_90a" in csrc.NVCC_FLAGS
     # every header is a build dependency, and every header a source
     # includes is listed

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from smartbft_tpu_torch.crypto import bls12381 as bls
+from smartbft_tpu_torch.crypto import cuda_bls as cbl
 from smartbft_tpu_torch.crypto import cuda_comb as cc
 from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
 from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
@@ -234,3 +236,41 @@ def test_ed_engine_on_the_card(cuda):
     items = _ed_items(8, keys, "ede")
     assert eng.verify(items) == [ed.verify_item(it) for it in items]
     assert eng.route_launches == {"comb": 1, "generic": 0}
+
+
+def _bls_items():
+    """Six distinct BLS lanes: two valid votes, a wrong key, a wrong
+    message, an aggregated quorum and an undecodable signature."""
+    keys = [bls.keygen(b"gpu-bls-%d" % i) for i in range(3)]
+    msg = b"gpu-bls-digest"
+    votes = [(msg, bls.sign(sk, msg), pk) for sk, pk in keys]
+    return [votes[0], votes[1],
+            (msg, votes[0][1], keys[1][1]),
+            (b"gpu-bls-other", votes[2][1], keys[2][1]),
+            bls.aggregate_items(votes),
+            (msg, b"\x01" * bls.SIG_BYTES, keys[0][1])]
+
+
+@pytest.mark.parametrize("bsz", [1, 17, 130])
+def test_bls_kernel_matches_plain(cuda, bsz):
+    """The pairing kernel against its plain version, mask bit for bit, on
+    lanes cycling through the six kinds (ragged against 32 lanes a
+    block), and against the host verify."""
+    distinct = _bls_items()
+    items = [distinct[i % len(distinct)] for i in range(bsz)]
+    arrays = [torch.from_numpy(a).to(cuda) for a in cbl.verify_words(items)]
+    before = cbl.LAUNCHES.launches
+    got = cbl.bls_verify(*arrays)
+    assert cbl.LAUNCHES.launches == before + 1
+    assert torch.equal(got, cbl.bls_verify_plain(*arrays))
+    truth = [int(bls.verify_item(it)) for it in distinct]
+    assert truth == [1, 1, 0, 0, 1, 0]
+    assert got.cpu().tolist() == [truth[i % len(distinct)] for i in range(bsz)]
+
+
+def test_bls_engine_on_the_card(cuda):
+    eng = TorchVerifyEngine(scheme=bls)
+    items = _bls_items()
+    assert eng.verify(items) == [bool(v) for v in (1, 1, 0, 0, 1, 0)]
+    assert eng.route_launches == {"comb": 0, "generic": 1}
+    assert eng.rung_launches == {8: 1}

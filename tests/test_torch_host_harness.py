@@ -1,7 +1,8 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
 ``smartbft_tpu_torch/csrc/p256_field.cuh``, ``p256_group.cuh``,
-``p256_comb_group.cuh``, ``ed25519_field.cuh``, ``ed25519_group.cuh`` and
-``ed25519_comb_group.cuh`` (through host_harness.cc)
+``p256_comb_group.cuh``, ``ed25519_field.cuh``, ``ed25519_group.cuh``,
+``ed25519_comb_group.cuh``, ``bls381_field.cuh`` and ``bls381_pairing.cuh``
+(through host_harness.cc)
 and the field, curve and per-lane verify routines and the group kernels'
 stage programs are held against Python integers — arithmetic faults show
 here, before any time on the card."""
@@ -14,7 +15,10 @@ import subprocess
 import numpy as np
 import pytest
 
+from smartbft_tpu.crypto import bls12381 as jbls
 from smartbft_tpu_torch.crypto import bignum as bn
+from smartbft_tpu_torch.crypto import bls12381 as tbls
+from smartbft_tpu_torch.crypto import cuda_bls as cbl
 from smartbft_tpu_torch.crypto import cuda_comb as cc
 from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
 from smartbft_tpu_torch.crypto import ed25519 as ed
@@ -747,3 +751,177 @@ def test_ed_comb_group_program_matches_the_plain_version(lib, group,
     assert _ed_comb(lib, 0, arrays, qtab).tolist() == want
     one = [a[:1].copy() for a in arrays]
     assert _ed_comb(lib, group, one, qtab).tolist() == want[:1] == [1]
+
+
+# ---------------------------------------------------------------------------
+# BLS12-381: bls381_field.cuh and bls381_pairing.cuh
+# ---------------------------------------------------------------------------
+
+BP = tbls.P
+BR = 1 << 384
+
+
+def _bw(x):
+    return np.frombuffer(x.to_bytes(48, "little"), np.uint32).copy()
+
+
+def _bi(a):
+    return int.from_bytes(np.asarray(a, np.uint32).tobytes(), "little")
+
+
+#: the edges of a reduction: 0, 1, p - 1 and R mod p (1 in Montgomery form)
+BLS_EDGES = [0, 1, BP - 1, BR % BP]
+
+
+@pytest.mark.parametrize("case", ["seeded", "edges"])
+def test_bls_fp_against_integers(lib, case):
+    """Montgomery product and square, addition, subtraction and the Fermat
+    inversion mod p, fully reduced, against Python integers."""
+    if case == "seeded":
+        rng = np.random.default_rng(381)
+        xs = [int.from_bytes(rng.bytes(48), "little") % BP for _ in range(40)]
+        pairs = list(zip(xs[:20], xs[20:]))
+    else:
+        pairs = [(x, y) for x in BLS_EDGES for y in BLS_EDGES]
+    rinv = pow(BR, -1, BP)
+    out = np.zeros(12, np.uint32)
+    for x, y in pairs:
+        a, b = _bw(x), _bw(y)
+        lib.blsh_fp_mul(_ptr(a), _ptr(b), _ptr(out))
+        assert _bi(out) == x * y * rinv % BP, (x, y)
+        lib.blsh_fp_sqr(_ptr(a), _ptr(out))
+        assert _bi(out) == x * x * rinv % BP, x
+        lib.blsh_fp_add(_ptr(a), _ptr(b), _ptr(out))
+        assert _bi(out) == (x + y) % BP
+        lib.blsh_fp_sub(_ptr(a), _ptr(b), _ptr(out))
+        assert _bi(out) == (x - y) % BP
+    for x, _ in pairs[:4]:
+        lib.blsh_fp_inv(_ptr(_bw(x * BR % BP)), _ptr(out))
+        want = pow(x, -1, BP) * BR % BP if x else 0
+        assert _bi(out) == want, x
+
+
+def _b12(x):
+    """Host Fp12 -> (12, 12) Montgomery words in the stacked order."""
+    return np.stack([_bw(v * BR % BP) for v in cbl._flatten_host_fp12(x)])
+
+
+def _h12(words):
+    rinv = pow(BR, -1, BP)
+    it = iter(_bi(r) * rinv % BP for r in words.reshape(12, 12))
+    return tuple(tuple((next(it), next(it)) for _ in range(3))
+                 for _ in range(2))
+
+
+@pytest.fixture(scope="module")
+def bls_table():
+    return np.ascontiguousarray(cbl.const_table())
+
+
+def test_bls_fp12_ops_match_the_host_tower(lib, bls_table):
+    """Fp12 product, square (the Karatsuba form), inverse and Frobenius
+    against the JAX package's HostFp tower; the cyclotomic square
+    (Granger-Scott) equals the square on the cyclotomic subgroup (the easy
+    part's image f^((p^6 - 1)(p^2 + 1)) of a random f), and differs from
+    it off the subgroup."""
+    import random
+
+    rng = random.Random(12)
+    H = jbls.HOST
+    g = (jbls._G1F, jbls._G2F, jbls._G4F)
+    out = np.zeros((12, 12), np.uint32)
+    for _ in range(3):
+        x, y = (tuple(tuple((rng.randrange(BP), rng.randrange(BP))
+                            for _ in range(3)) for _ in range(2))
+                for _ in range(2))
+        lib.blsh_fp12_mul(_ptr(_b12(x)), _ptr(_b12(y)), _ptr(out))
+        assert _h12(out) == jbls.fp12_mul(H, x, y)
+        lib.blsh_fp12_sqr(_ptr(_b12(x)), _ptr(out))
+        assert _h12(out) == jbls.fp12_mul(H, x, x)
+        lib.blsh_fp12_inv(_ptr(_b12(x)), _ptr(out))
+        assert _h12(out) == jbls.fp12_inv(H, x)
+        lib.blsh_fp12_frob(_ptr(_b12(x)), _ptr(bls_table), _ptr(out))
+        assert _h12(out) == jbls.fp12_frob(H, x, *g)
+        m = jbls.fp12_mul(H, jbls.fp12_conj(H, x), jbls.fp12_inv(H, x))
+        m = jbls.fp12_mul(H, jbls.fp12_frob(H, jbls.fp12_frob(H, m, *g), *g),
+                          m)
+        lib.blsh_fp12_cyclo_sqr(_ptr(_b12(m)), _ptr(out))
+        assert _h12(out) == jbls.fp12_mul(H, m, m)
+        lib.blsh_fp12_cyclo_sqr(_ptr(_b12(x)), _ptr(out))
+        assert _h12(out) != jbls.fp12_mul(H, x, x)
+        line = tuple((rng.randrange(BP), rng.randrange(BP)) for _ in range(3))
+        xp, yp = rng.randrange(BP), rng.randrange(BP)
+        lw = np.stack([_bw(v * BR % BP) for pair in line for v in pair])
+        lib.blsh_mul_line(_ptr(_b12(x)), _ptr(lw), _ptr(_bw(xp * BR % BP)),
+                          _ptr(_bw(yp * BR % BP)), _ptr(out))
+        scaled = jbls._scale_line(H, line, xp, yp)
+        assert _h12(out) == jbls.fp12_mul(
+            H, x, jbls._line_to_fp12(H, *scaled))
+
+
+def _bls_items():
+    keys = [tbls.keygen(b"harness-%d" % i) for i in range(3)]
+    msg = b"harness-digest"
+    votes = [(msg, tbls.sign(sk, msg), pk) for sk, pk in keys]
+    return votes + [
+        (msg, votes[0][1], keys[1][1]),                    # wrong key
+        (b"harness-other", votes[2][1], keys[2][1]),       # wrong message
+        tbls.aggregate_items(votes),                       # quorum lane
+        (msg, tbls.aggregate_sigs([v[1] for v in votes[:2]]),
+         tbls.aggregate_pubs([v[2] for v in votes])),      # one signer short
+        (msg, b"\x01" * tbls.SIG_BYTES, keys[0][1]),       # does not decode
+    ]
+
+
+def _bls_verify(lib, table, words):
+    n = len(words[-1])
+    out = np.zeros(n, np.uint32)
+    lib.blsh_verify(n, _ptr(table), *[_ptr(np.ascontiguousarray(w))
+                                      for w in words], _ptr(out))
+    return out.tolist()
+
+
+def test_bls_lanes_match_verify_item(lib, bls_table):
+    """The kernel's lane loop over the headers: valid votes, a wrong key, a
+    wrong message, an aggregated quorum, an aggregate one signer short and
+    an undecodable signature, against ``verify_item`` of both packages."""
+    items = _bls_items()
+    got = _bls_verify(lib, bls_table, cbl.verify_words(items))
+    assert got == [1, 1, 1, 0, 0, 1, 0, 0]
+    assert got == [int(tbls.verify_item(it)) for it in items]
+    assert got == [int(jbls.verify_item(it)) for it in items]
+
+
+def test_bls_miller_and_final_exp_match_the_host(lib, bls_table):
+    """One lane's fused Miller loop and final exponentiation, value for
+    value: the host Miller product of e(sig, -g2) e(H(m), pk), and its
+    ``host_final_exp``."""
+    msg, sig, pub = _bls_items()[0]
+    words = cbl.verify_words([(msg, sig, pub)])
+    lane = np.concatenate([w[0].view(np.uint32) for w in words[:8]])
+    f = np.zeros((12, 12), np.uint32)
+    lib.blsh_miller(_ptr(bls_table), _ptr(lane), _ptr(f))
+    s = tbls.deserialize_g1(sig)
+    pk = tbls.deserialize_g2(pub)
+    want = jbls.fp12_mul(jbls.HOST, jbls.host_miller_loop(s, jbls.NEG_G2),
+                         jbls.host_miller_loop(jbls.hash_to_g1(msg), pk))
+    assert _h12(f) == want
+    e = np.zeros((12, 12), np.uint32)
+    lib.blsh_final_exp(_ptr(bls_table), _ptr(f), _ptr(e))
+    assert _h12(e) == jbls.host_final_exp(want) == jbls.fp12_one(jbls.HOST)
+
+
+def test_bls_op_counts_of_the_bound_match_the_kernel(lib, bls_table):
+    """The bound's count (``cuda_bls.lane_ops``) is the headers' own: the
+    g++ build counts every Fp product and squaring the lane loop runs, for
+    each live lane, and none for a lane with ok = 0."""
+    items = _bls_items()
+    words = cbl.verify_words(items)
+    counts = np.zeros(2, np.uint64)
+    lib.blsh_reset_op_counts()
+    _bls_verify(lib, bls_table, words)
+    lib.blsh_op_counts(_ptr(counts))
+    ops = cbl.mont_ops(*words)
+    assert ops == {k: 7 * v for k, v in cbl.lane_ops().items()}
+    assert counts.tolist() == [ops["b381_mul"], ops["b381_sqr"]]
+

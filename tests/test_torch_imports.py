@@ -39,9 +39,10 @@ def test_scan_covers_the_kernel_modules():
     names = {p.name for p in PORT.rglob("*.py")}
     assert {"cuda_comb.py", "cuda_ecdsa.py", "cuda_ed25519.py",
             "cuda_eddsa.py", "ed25519.py", "provider.py",
-            "consensus.py"} <= names
+            "consensus.py", "bls12381.py", "cuda_bls.py"} <= names
     assert {p.name for p in (PORT / "csrc").glob("*.cu")} >= {
-        "cuda_comb.cu", "cuda_ecdsa.cu", "cuda_ed25519.cu", "cuda_eddsa.cu"}
+        "cuda_comb.cu", "cuda_ecdsa.cu", "cuda_ed25519.cu", "cuda_eddsa.cu",
+        "cuda_bls.cu"}
 
 
 def test_importing_the_port_loads_no_jax():
