@@ -9,10 +9,11 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
                 (five, sm_90a, and the P-256 comb and generic kernels at 4
-                threads a signature and the Ed25519 comb and generic ones
-                at 2, one nvcc each, all started together); prints build
-                seconds and
-                ptxas' registers / stack / spills / shared bytes.
+                threads a signature, the Ed25519 comb and generic ones at
+                2, the pairing kernel at its other group size and stopped
+                after its Miller loop, one nvcc each, all started
+                together); prints build seconds and ptxas' registers /
+                stack / spills / shared bytes.
 2. comb       — the P-256 comb kernel against its plain-torch version at
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
                 a seeded rejection matrix (corrupted r, r = 0, s >= n,
@@ -77,6 +78,14 @@ Phases, one JSON line each; any failure exits non-zero:
                 threads a signature) and the build at 4.
 12. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
+13. bls_groups — the same for the BLS12-381 pairing kernel: the library
+                and the build at its other group size (threads a lane),
+                at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
+                eight times over); then the split of a launch between the
+                Miller loop and the final exponentiation: the build that
+                stops after the Miller loop timed in turns with the
+                library (library, Miller, Miller, library) at 512 and
+                16384, and each build's dynamic shared memory a block.
 
 The last two lines are the card's name and power limit as nvidia-smi
 prints them, then ``{"ok": true, "device": {...}}``.
@@ -902,6 +911,12 @@ def phase_e2e_bls(wal_root, n=64, batch=500, pipeline=16, decisions=32):
     return {"bls": run}
 
 
+def bls_args16(rec):
+    """The pairing kernel's 16384-lane arguments: the 2048-lane batch of
+    phase bls eight times over."""
+    return [a.repeat(8, *([1] * (a.dim() - 1))) for a in rec[2048]["args"]]
+
+
 def bls_kernel_row(rec, cell, clock_hz, sms):
     """The pairing kernel's row of the kernels line: time per launch at
     every rung cell E used and at 16384 (the 2048-lane batch eight times
@@ -910,14 +925,15 @@ def bls_kernel_row(rec, cell, clock_hz, sms):
 
     from smartbft_tpu_torch.crypto import cuda_bls as cbl
 
-    args16 = [a.repeat(8, *([1] * (a.dim() - 1))) for a in rec[2048]["args"]]
+    args16 = bls_args16(rec)
     rung = cell["main_rung"]
     args_r = first_lanes(args16, rung)
     ms_by_rung = {}
     for r in cell["rung_launches"]:
         args_b = first_lanes(args16, int(r))
-        ms_by_rung[r] = round(time_ms(lambda: cbl.bls_verify(*args_b), 3), 4)
-    ms_16k = time_ms(lambda: cbl.bls_verify(*args16), 3)
+        ms_by_rung[r] = round(time_ms(lambda: cbl.bls_verify(*args_b), 10),
+                              4)
+    ms_16k = time_ms(lambda: cbl.bls_verify(*args16), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = cbl.bls_verify_plain(*args_r)
@@ -1053,8 +1069,11 @@ def group_phase(phase, lib, mod, plain, rec, report):
     from smartbft_tpu_torch import csrc
 
     args16 = rec[max(rec)]["args"]
-    builds = [lib] + [name for name, (src, _) in csrc.VARIANTS.items()
-                      if src == csrc.SOURCES[lib]]
+    # the builds of the source at another group size (not the pairing
+    # kernel's Miller-loop build)
+    builds = [lib] + [name for name, (src, flags) in csrc.VARIANTS.items()
+                      if src == csrc.SOURCES[lib]
+                      and any("GROUP=" in f for f in flags)]
     # each build by the group size it reports, the wrapper's first
     groups = {f"G{mod.group_size(name)}": name for name in builds}
     want = plain(*first_lanes(args16, 512))
@@ -1077,6 +1096,46 @@ def group_phase(phase, lib, mod, plain, rec, report):
            "ptxas": {key: {k: v for k, v in report[name].items()
                            if k not in ("ptxas", "seconds")}
                      for key, name in groups.items()}}
+    emit(out)
+    return out
+
+
+def phase_bls_groups(rec, report):
+    """The pairing kernel at each group size (:func:`group_phase` on the
+    16384-lane batch), then the split of a launch: the build that stops
+    after the Miller loop (``cuda_bls_miller``) in turns with the library
+    at rungs 512 and 16384; the final exponentiation's share is the
+    difference.  With the dynamic shared memory a block of each build
+    takes (the stage program's slots)."""
+    from smartbft_tpu_torch.crypto import cuda_bls as cbl
+
+    args16 = bls_args16(rec)
+    group_phase("bls_groups", "cuda_bls", cbl, cbl.bls_verify_plain,
+                {16384: {"args": args16}}, report)
+    turns: dict = {}
+    for rung in (512, 16384):
+        args = first_lanes(args16, rung)
+        for name in ("cuda_bls", "cuda_bls_miller", "cuda_bls_miller",
+                     "cuda_bls"):
+            t = time_ms(lambda: cbl.launch(name, *args),
+                        5 if rung == 16384 else 20)
+            turns.setdefault(name, {}).setdefault(str(rung), []).append(
+                round(t, 4))
+    split = {}
+    for rung in ("512", "16384"):
+        full = sum(turns["cuda_bls"][rung]) / 2
+        miller = sum(turns["cuda_bls_miller"][rung]) / 2
+        split[rung] = {"launch_ms": round(full, 4),
+                       "miller_ms": round(miller, 4),
+                       "final_exp_ms": round(full - miller, 4),
+                       "miller_share": round(miller / full, 4)}
+    out = {"phase": "bls_split", "ok": True, "group": cbl.group_size(),
+           "split": split, "ms_turns": turns,
+           "shared_bytes_a_block": {
+               name: cbl.shared_bytes(name)
+               for name in ("cuda_bls", "cuda_bls_g6", "cuda_bls_miller")},
+           "ptxas_miller": {k: v for k, v in report["cuda_bls_miller"].items()
+                            if k not in ("ptxas", "seconds")}}
     emit(out)
     return out
 
@@ -1157,6 +1216,7 @@ def main() -> int:
         timed("ed_comb_groups", group_phase, "ed_comb_groups",
               "cuda_ed25519", ced, ced.eddsa_verify_comb_plain,
               recs["ed_comb"], report)
+        timed("bls_groups", phase_bls_groups, recs["bls"], report)
     finally:
         shutil.rmtree(wal_root, ignore_errors=True)
     emit({"phase": "timing", "seconds": seconds,

@@ -17,10 +17,11 @@ quorum; the cost is the same.
   (:func:`mul12`), built from the host tower, as ``_mul12_tensor`` is:
   about a thousand stacked calls a verify, whatever the batch.
 * :func:`bls_verify` is the wrapper: on CUDA tensors it launches
-  ``csrc/cuda_bls.cu`` (one thread a lane, over ``csrc/bls381_field.cuh``
-  and ``csrc/bls381_pairing.cuh``) and counts the launch in
-  :data:`LAUNCHES`; on CPU tensors it runs :func:`bls_verify_plain`.  It
-  never falls back from one to the other.
+  ``csrc/cuda_bls.cu`` (a group of 12 threads a lane running the stage
+  program of :mod:`.bls_stages` over ``csrc/bls381_group.cuh`` and
+  ``csrc/bls381_field.cuh``) and counts the launch in :data:`LAUNCHES`;
+  on CPU tensors it runs :func:`bls_verify_plain`.  It never falls back
+  from one to the other.
 
 Inputs are eight (B, 12) int32 tensors of little-endian 32-bit words of
 Montgomery values (sig x, y; H(m) x, y; pk x0, x1, y0, y1), packed from
@@ -38,6 +39,7 @@ import torch
 
 from .. import csrc
 from . import bls12381 as bls
+from . import bls_stages
 from .bignum import TorchMont, words_to_limbs
 from .cuda_ecdsa import as_tensor
 from .cuda_eddsa import check_lanes
@@ -472,18 +474,45 @@ def const_table() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = csrc.load("cuda_bls")
+def _lib(name: str = "cuda_bls"):
+    """The kernel library the wrapper loads, or a build of the same source
+    with another group size or stopping after the Miller loop (a name in
+    :data:`csrc.VARIANTS`)."""
+    lib = csrc.load(name)
     vp = ctypes.c_void_p
     lib.smartbft_bls_verify.restype = ctypes.c_int
-    lib.smartbft_bls_verify.argtypes = [vp] * 11 + [ctypes.c_int, vp]
+    lib.smartbft_bls_verify.argtypes = [vp] * 10 + [ctypes.c_int, vp, vp,
+                                                    ctypes.c_int, vp]
+    lib.smartbft_bls_group.restype = ctypes.c_int
+    lib.smartbft_bls_group.argtypes = []
+    lib.smartbft_bls_shared_bytes.restype = ctypes.c_int
+    lib.smartbft_bls_shared_bytes.argtypes = [ctypes.c_int]
     return lib
+
+
+def group_size(name: str = "cuda_bls") -> int:
+    """Threads a lane of the kernel library ``name``."""
+    return _lib(name).smartbft_bls_group()
+
+
+def shared_bytes(name: str = "cuda_bls") -> int:
+    """Dynamic shared memory a block of the kernel library ``name`` takes
+    for the stage program's slots."""
+    return _lib(name).smartbft_bls_shared_bytes(bls_stages.program().nslots)
 
 
 @functools.lru_cache(maxsize=None)
 def device_table(device) -> torch.Tensor:
     """:func:`const_table` on ``device``, uploaded once per device."""
     return torch.from_numpy(const_table()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_program(device) -> torch.Tensor:
+    """The stage program's words (:func:`.bls_stages.program`) on
+    ``device``, uploaded once per device."""
+    words = bls_stages.program().words
+    return torch.from_numpy(words.view(np.int32)).to(device)
 
 
 def check_words(a, name: str, bsz: int, device) -> None:
@@ -493,27 +522,38 @@ def check_words(a, name: str, bsz: int, device) -> None:
                          f"on {device}, got {tuple(a.shape)} {a.dtype}")
 
 
-def bls_verify_cuda(sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0, pk_y1,
-                    ok) -> torch.Tensor:
+def launch(name: str, sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0, pk_y1,
+           ok) -> torch.Tensor:
     """Check the CUDA tensors (shapes as the plain version's), then launch
-    the kernel and count it."""
+    the kernel of the library ``name`` (see :func:`_lib`); counts
+    nothing."""
     vals = (sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0, pk_y1)
     bsz, dev = sig_x.shape[0], sig_x.device
     names = ("sig_x", "sig_y", "hm_x", "hm_y", "pk_x0", "pk_x1", "pk_y0",
              "pk_y1")
-    for a, name in zip(vals, names):
-        check_words(a, name, bsz, dev)
+    for a, label in zip(vals, names):
+        check_words(a, label, bsz, dev)
     check_lanes(ok, "ok", bsz, dev)
     out = torch.empty(bsz, dtype=torch.int32, device=dev)
     if bsz == 0:
         return out
-    table = device_table(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().smartbft_bls_verify(
-        *(a.data_ptr() for a in vals), ok.data_ptr(), table.data_ptr(),
-        out.data_ptr(), bsz, stream)
+    rc = _lib(name).smartbft_bls_verify(
+        *(a.data_ptr() for a in vals), ok.data_ptr(),
+        device_program(dev).data_ptr(), bls_stages.program().nslots,
+        device_table(dev).data_ptr(), out.data_ptr(), bsz, stream)
     csrc.check(rc, "bls_verify")
-    LAUNCHES.add(bsz)
+    return out
+
+
+def bls_verify_cuda(sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0, pk_y1,
+                    ok) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (shapes as the plain version's)
+    and count it."""
+    out = launch("cuda_bls", sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0,
+                 pk_y1, ok)
+    if out.numel():
+        LAUNCHES.add(out.numel())
     return out
 
 

@@ -29,15 +29,20 @@ SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
 #: builds of a source with another compile-time constant, which no wrapper
 #: loads (``chip_smoke.py`` times them beside the library): the P-256 comb
 #: and generic kernels at 4 threads a signature, the Ed25519 comb and
-#: generic ones at 2
+#: generic ones at 2, the pairing kernel at 6 threads a lane, and the
+#: pairing kernel stopped after its Miller loop (a timing of the split, no
+#: verify)
 VARIANTS = {"cuda_comb_g4": ("cuda_comb.cu", ("-DCOMB_GROUP=4",)),
             "cuda_ecdsa_g4": ("cuda_ecdsa.cu", ("-DECDSA_GROUP=4",)),
             "cuda_ed25519_g2": ("cuda_ed25519.cu", ("-DED_COMB_GROUP=2",)),
-            "cuda_eddsa_g2": ("cuda_eddsa.cu", ("-DEDDSA_GROUP=2",))}
+            "cuda_eddsa_g2": ("cuda_eddsa.cu", ("-DEDDSA_GROUP=2",)),
+            "cuda_bls_g6": ("cuda_bls.cu", ("-DBLS_GROUP=6",)),
+            "cuda_bls_miller": ("cuda_bls.cu", ("-DBLS_MILLER_ONLY=1",))}
 #: every header; an edit to any of them rebuilds every kernel
 HEADERS = ("field256.cuh", "p256_field.cuh", "p256_group.cuh",
            "p256_comb_group.cuh", "ed25519_field.cuh", "ed25519_group.cuh",
-           "ed25519_comb_group.cuh", "bls381_field.cuh", "bls381_pairing.cuh")
+           "ed25519_comb_group.cuh", "bls381_field.cuh", "bls381_group.cuh",
+           "bls381_pairing.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

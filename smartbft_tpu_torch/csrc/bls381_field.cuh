@@ -1,24 +1,24 @@
-// BLS12-381 base field and its tower, shared by the CUDA pairing kernel
-// (cuda_bls.cu) and the g++ host harness (host_harness.cc).  Every routine
-// is __host__ __device__ under nvcc and plain C++ under g++, so the
-// arithmetic that runs on the card is checked against Python integers on a
-// CPU first.
+// BLS12-381 base field and its tower.  The Fp layer (fp_mont, fp_add,
+// fp_sub, fp_add_nr) is what the CUDA pairing kernel runs (cuda_bls.cu,
+// through bls381_group.cuh's stage program); the tower over it and
+// bls381_pairing.cuh are the one-thread lane that the g++ host harness
+// (host_harness.cc) holds the stage program to.  The Fp routines are
+// __host__ __device__: PTX carry chains on the card, portable C++ under g++
+// and in nvcc's host pass, so the arithmetic that runs on the card is
+// checked against Python integers on a CPU first (the chains themselves on
+// the PTX emulator of tests/test_torch_ptx_chains.py).
 //
 // Fp: p = 0x1a0111ea...ffffaaab (381 bits) as 12 little-endian 32-bit
 // words, Montgomery form with R = 2^384 (the same R as the JAX package's
 // 24 x 16-bit limbs, so every Montgomery value and table entry is the same
-// number in both).  Products are CIOS Montgomery multiplication with
-// 64-bit partial products (portable C++, no PTX carry chains), and every
-// value is kept fully reduced below p, so equality is word equality.
+// number in both).  Products are CIOS Montgomery multiplication; they take
+// operands below 4p (a sum of up to four reduced values, fp_add_nr) and
+// return a fully reduced value, and every stored value is fully reduced
+// below p, so equality is word equality.
 // Tower, as crypto/bls12381.py: Fp2 = Fp[u]/(u^2+1), Fp6 = Fp2[v]/(v^3 -
 // (u+1)), Fp12 = Fp6[w]/(w^2 - v); the Frobenius reads its gamma constants
-// from the caller; inversion is Fermat's in Fp under the norm tower.
-//
-// Code size: the products (fp_mul / fp_sqr, the Fp2, Fp6 and Fp12
-// products) and the Fp12-level routines are real calls (__noinline__ on
-// the card), the additions inline.  Inlining the Fp2 and Fp6 products as
-// well doubled nvcc's time and made the kernel slower (more code for the
-// instruction cache, more spills).
+// from the caller; inversion is Fermat's in Fp under the norm tower.  The
+// tower routines are host code (B381_CALL): no kernel calls them.
 #pragma once
 
 #include <stddef.h>
@@ -26,15 +26,15 @@
 
 #ifdef __CUDACC__
 #define B381_HD __host__ __device__ __forceinline__
-#define B381_CALL __host__ __device__ __noinline__
 #define B381_UNROLL _Pragma("unroll")
 #define B381_NO_UNROLL _Pragma("unroll 1")
 #else
 #define B381_HD inline
-#define B381_CALL inline
 #define B381_UNROLL
 #define B381_NO_UNROLL
 #endif
+// the tower: host code only
+#define B381_CALL inline
 
 // the host harness counts Fp products and squarings (the bound's work,
 // cuda_bls.mont_ops); the card counts nothing
@@ -119,6 +119,209 @@ B381_UNROLL
   return d == 0;
 }
 
+#ifdef __CUDA_ARCH__
+
+// The card's Fp: PTX carry chains.  A 12-word CIOS product is 12 rounds of
+// a row t += a * b[i] and a reduction row t += m * p (m = t[0] * -p^-1,
+// which clears t[0]), then a shift by one word; t stays below 5p < 2^384
+// between rounds for a, b < 4p, so t[12] enters every row as 0.
+
+// t[0..12] += a * bi (t[12] enters as 0); no carry leaves t[12]
+__device__ __forceinline__ void b_row(uint32_t* t, const Fp& a, uint32_t bi) {
+  asm("mad.lo.cc.u32 %0, %13, %25, %0;\n\t"
+      "madc.lo.cc.u32 %1, %14, %25, %1;\n\t"
+      "madc.lo.cc.u32 %2, %15, %25, %2;\n\t"
+      "madc.lo.cc.u32 %3, %16, %25, %3;\n\t"
+      "madc.lo.cc.u32 %4, %17, %25, %4;\n\t"
+      "madc.lo.cc.u32 %5, %18, %25, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %25, %6;\n\t"
+      "madc.lo.cc.u32 %7, %20, %25, %7;\n\t"
+      "madc.lo.cc.u32 %8, %21, %25, %8;\n\t"
+      "madc.lo.cc.u32 %9, %22, %25, %9;\n\t"
+      "madc.lo.cc.u32 %10, %23, %25, %10;\n\t"
+      "madc.lo.cc.u32 %11, %24, %25, %11;\n\t"
+      "addc.u32 %12, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %13, %25, %1;\n\t"
+      "madc.hi.cc.u32 %2, %14, %25, %2;\n\t"
+      "madc.hi.cc.u32 %3, %15, %25, %3;\n\t"
+      "madc.hi.cc.u32 %4, %16, %25, %4;\n\t"
+      "madc.hi.cc.u32 %5, %17, %25, %5;\n\t"
+      "madc.hi.cc.u32 %6, %18, %25, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %25, %7;\n\t"
+      "madc.hi.cc.u32 %8, %20, %25, %8;\n\t"
+      "madc.hi.cc.u32 %9, %21, %25, %9;\n\t"
+      "madc.hi.cc.u32 %10, %22, %25, %10;\n\t"
+      "madc.hi.cc.u32 %11, %23, %25, %11;\n\t"
+      "madc.hi.u32 %12, %24, %25, %12;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(a.v[8]), "r"(a.v[9]),
+        "r"(a.v[10]), "r"(a.v[11]), "r"(bi));
+}
+
+// t[0..12] += m * p, with the words of p in p[0..11]
+__device__ __forceinline__ void b_redc_row(uint32_t* t, const uint32_t* p,
+                                           uint32_t m) {
+  asm("mad.lo.cc.u32 %0, %25, %13, %0;\n\t"
+      "madc.lo.cc.u32 %1, %25, %14, %1;\n\t"
+      "madc.lo.cc.u32 %2, %25, %15, %2;\n\t"
+      "madc.lo.cc.u32 %3, %25, %16, %3;\n\t"
+      "madc.lo.cc.u32 %4, %25, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %25, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %25, %19, %6;\n\t"
+      "madc.lo.cc.u32 %7, %25, %20, %7;\n\t"
+      "madc.lo.cc.u32 %8, %25, %21, %8;\n\t"
+      "madc.lo.cc.u32 %9, %25, %22, %9;\n\t"
+      "madc.lo.cc.u32 %10, %25, %23, %10;\n\t"
+      "madc.lo.cc.u32 %11, %25, %24, %11;\n\t"
+      "addc.u32 %12, %12, 0;\n\t"
+      "mad.hi.cc.u32 %1, %25, %13, %1;\n\t"
+      "madc.hi.cc.u32 %2, %25, %14, %2;\n\t"
+      "madc.hi.cc.u32 %3, %25, %15, %3;\n\t"
+      "madc.hi.cc.u32 %4, %25, %16, %4;\n\t"
+      "madc.hi.cc.u32 %5, %25, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %25, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %25, %19, %7;\n\t"
+      "madc.hi.cc.u32 %8, %25, %20, %8;\n\t"
+      "madc.hi.cc.u32 %9, %25, %21, %9;\n\t"
+      "madc.hi.cc.u32 %10, %25, %22, %10;\n\t"
+      "madc.hi.cc.u32 %11, %25, %23, %11;\n\t"
+      "madc.hi.u32 %12, %25, %24, %12;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
+      : "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]),
+        "r"(p[6]), "r"(p[7]), "r"(p[8]), "r"(p[9]), "r"(p[10]), "r"(p[11]),
+        "r"(m));
+}
+
+// t[0..11] + t[12] 2^384 (< 2p, t[12] = 0) -> t - p if t >= p, else t
+__device__ __forceinline__ Fp b_final_sub(const uint32_t* t) {
+  Fp d;
+  uint32_t keep;
+  asm("sub.cc.u32 %0, %13, 0xFFFFAAAB;\n\t"
+      "subc.cc.u32 %1, %14, 0xB9FEFFFF;\n\t"
+      "subc.cc.u32 %2, %15, 0xB153FFFF;\n\t"
+      "subc.cc.u32 %3, %16, 0x1EABFFFE;\n\t"
+      "subc.cc.u32 %4, %17, 0xF6B0F624;\n\t"
+      "subc.cc.u32 %5, %18, 0x6730D2A0;\n\t"
+      "subc.cc.u32 %6, %19, 0xF38512BF;\n\t"
+      "subc.cc.u32 %7, %20, 0x64774B84;\n\t"
+      "subc.cc.u32 %8, %21, 0x434BACD7;\n\t"
+      "subc.cc.u32 %9, %22, 0x4B1BA7B6;\n\t"
+      "subc.cc.u32 %10, %23, 0x397FE69A;\n\t"
+      "subc.cc.u32 %11, %24, 0x1A0111EA;\n\t"
+      "subc.u32 %12, %25, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]), "=r"(d.v[4]),
+        "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(d.v[8]), "=r"(d.v[9]),
+        "=r"(d.v[10]), "=r"(d.v[11]), "=r"(keep)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]),
+        "r"(t[12]));
+  // keep = t[12] - borrow: all ones when t < p, else 0
+  Fp r;
+B381_UNROLL
+  for (int j = 0; j < kWords; ++j) r.v[j] = (t[j] & keep) | (d.v[j] & ~keep);
+  return r;
+}
+
+// a + b mod 2^384, no reduction: a product's pre-summed operand (< 4p)
+// and the first half of fp_add
+__device__ __forceinline__ Fp fp_add_nr(const Fp& a, const Fp& b) {
+  Fp s = a;
+  asm("add.cc.u32 %0, %0, %12;\n\t"
+      "addc.cc.u32 %1, %1, %13;\n\t"
+      "addc.cc.u32 %2, %2, %14;\n\t"
+      "addc.cc.u32 %3, %3, %15;\n\t"
+      "addc.cc.u32 %4, %4, %16;\n\t"
+      "addc.cc.u32 %5, %5, %17;\n\t"
+      "addc.cc.u32 %6, %6, %18;\n\t"
+      "addc.cc.u32 %7, %7, %19;\n\t"
+      "addc.cc.u32 %8, %8, %20;\n\t"
+      "addc.cc.u32 %9, %9, %21;\n\t"
+      "addc.cc.u32 %10, %10, %22;\n\t"
+      "addc.u32 %11, %11, %23;"
+      : "+r"(s.v[0]), "+r"(s.v[1]), "+r"(s.v[2]), "+r"(s.v[3]), "+r"(s.v[4]),
+        "+r"(s.v[5]), "+r"(s.v[6]), "+r"(s.v[7]), "+r"(s.v[8]), "+r"(s.v[9]),
+        "+r"(s.v[10]), "+r"(s.v[11])
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+        "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(b.v[8]), "r"(b.v[9]),
+        "r"(b.v[10]), "r"(b.v[11]));
+  return s;
+}
+
+// a - b mod 2^384, and mask = all ones when it borrowed
+__device__ __forceinline__ Fp b_sub(const Fp& a, const Fp& b,
+                                    uint32_t& mask) {
+  Fp d = a;
+  asm("sub.cc.u32 %0, %0, %13;\n\t"
+      "subc.cc.u32 %1, %1, %14;\n\t"
+      "subc.cc.u32 %2, %2, %15;\n\t"
+      "subc.cc.u32 %3, %3, %16;\n\t"
+      "subc.cc.u32 %4, %4, %17;\n\t"
+      "subc.cc.u32 %5, %5, %18;\n\t"
+      "subc.cc.u32 %6, %6, %19;\n\t"
+      "subc.cc.u32 %7, %7, %20;\n\t"
+      "subc.cc.u32 %8, %8, %21;\n\t"
+      "subc.cc.u32 %9, %9, %22;\n\t"
+      "subc.cc.u32 %10, %10, %23;\n\t"
+      "subc.cc.u32 %11, %11, %24;\n\t"
+      "subc.u32 %12, 0, 0;"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]), "+r"(d.v[4]),
+        "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7]), "+r"(d.v[8]), "+r"(d.v[9]),
+        "+r"(d.v[10]), "+r"(d.v[11]), "=r"(mask)
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+        "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(b.v[8]), "r"(b.v[9]),
+        "r"(b.v[10]), "r"(b.v[11]));
+  return d;
+}
+
+// a + b mod p, a, b < p
+__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b) {
+  const Fp s = fp_add_nr(a, b);
+  uint32_t t[kWords + 1];
+B381_UNROLL
+  for (int j = 0; j < kWords; ++j) t[j] = s.v[j];
+  t[kWords] = 0;
+  return b_final_sub(t);
+}
+
+// a - b mod p, a, b < p: a - b, then p added back under the borrow's mask
+__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b) {
+  const uint32_t p[kWords] = B381_WORDS_P;
+  uint32_t mask;
+  const Fp d = b_sub(a, b, mask);
+  Fp pm;
+B381_UNROLL
+  for (int j = 0; j < kWords; ++j) pm.v[j] = p[j] & mask;
+  return fp_add_nr(d, pm);
+}
+
+// a * b * R^-1 mod p for a, b < 4p: below (16p / R + 1) p < 2.7p before
+// two final subtractions, fully reduced after them
+__device__ __forceinline__ Fp fp_mont(const Fp& a, const Fp& b) {
+  const uint32_t p[kWords] = B381_WORDS_P;
+  uint32_t t[kWords + 1];
+B381_UNROLL
+  for (int j = 0; j <= kWords; ++j) t[j] = 0;
+B381_UNROLL
+  for (int i = 0; i < kWords; ++i) {
+    b_row(t, a, b.v[i]);
+    b_redc_row(t, p, t[0] * kN0Inv);
+B381_UNROLL
+    for (int j = 0; j < kWords; ++j) t[j] = t[j + 1];
+    t[kWords] = 0;
+  }
+  const Fp r = b_final_sub(t);
+B381_UNROLL
+  for (int j = 0; j < kWords; ++j) t[j] = r.v[j];
+  return b_final_sub(t);
+}
+
+#else
+
 // t[0..11] + t12 * 2^384, a value below 2p, reduced below p
 B381_HD Fp reduce_once(const uint32_t* t, uint32_t t12) {
   const uint32_t p[kWords] = B381_WORDS_P;
@@ -136,6 +339,18 @@ B381_UNROLL
 B381_UNROLL
   for (int j = 0; j < kWords; ++j) r.v[j] = (t[j] & keep) | (d.v[j] & ~keep);
   return r;
+}
+
+B381_HD Fp fp_add_nr(const Fp& a, const Fp& b) {
+  Fp s;
+  uint64_t c = 0;
+B381_UNROLL
+  for (int j = 0; j < kWords; ++j) {
+    c += (uint64_t)a.v[j] + b.v[j];
+    s.v[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  return s;
 }
 
 B381_HD Fp fp_add(const Fp& a, const Fp& b) {
@@ -173,10 +388,9 @@ B381_UNROLL
   return r;
 }
 
-B381_HD Fp fp_neg(const Fp& a) { return fp_sub(fp_zero(), a); }
-
-// a * b * R^-1 mod p, CIOS: one row of a * b[i] and one reduction row a
-// word, 144 + 144 wide products
+// a * b * R^-1 mod p for a, b < 4p, CIOS: one row of a * b[i] and one
+// reduction row a word, 144 + 144 wide products, then two final
+// subtractions
 B381_HD Fp fp_mont(const Fp& a, const Fp& b) {
   const uint32_t p[kWords] = B381_WORDS_P;
   uint32_t t[kWords + 2];
@@ -206,17 +420,22 @@ B381_UNROLL
     t[kWords - 1] = (uint32_t)s;
     t[kWords] = t[kWords + 1] + (uint32_t)(s >> 32);
   }
-  return reduce_once(t, t[kWords]);
+  const Fp r = reduce_once(t, t[kWords]);
+  return reduce_once(r.v, 0);
 }
 
-B381_CALL Fp fp_mul(const Fp& a, const Fp& b) {
+#endif  // __CUDA_ARCH__
+
+B381_HD Fp fp_neg(const Fp& a) { return fp_sub(fp_zero(), a); }
+
+// the product and the square (the same code; the host harness counts them
+// apart, as the bound does)
+B381_HD Fp fp_mul(const Fp& a, const Fp& b) {
   B381_COUNT(mul);
   return fp_mont(a, b);
 }
 
-// a squaring (the bound counts it as one; this first kernel runs the
-// product's code on it)
-B381_CALL Fp fp_sqr(const Fp& a) {
+B381_HD Fp fp_sqr(const Fp& a) {
   B381_COUNT(sqr);
   return fp_mont(a, a);
 }

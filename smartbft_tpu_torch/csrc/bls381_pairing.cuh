@@ -1,6 +1,9 @@
 // The BLS12-381 pairing check of one lane, e(sig, -g2) * e(H(m), pk) == 1,
-// shared by the CUDA kernel (cuda_bls.cu) and the g++ host harness
-// (host_harness.cc), over the tower of bls381_field.cuh.
+// on one thread, over the tower of bls381_field.cuh: the first pairing
+// kernel's lane, kept as host code for the g++ host harness
+// (host_harness.cc), which holds the kernel's stage program
+// (bls381_group.cuh, crypto/bls_stages.py: the same formulas, spread over
+// a group of threads) to it value for value.
 //
 // The formulas are crypto/bls12381.py's: Miller doubling and mixed
 // addition on the M-twist in Jacobian coordinates over Fp2 (dbl-2007-b
@@ -98,8 +101,9 @@ B381_CALL void mul_line(Fp12& f, const Fp2* line, const Fp& xp,
 // the fused dual Miller loop, conjugated (x < 0); K's lines are read a row
 // at a time into the caller's frame
 template <class Table>
-B381_HD Fp12 miller(const Table& K, const Fp& sx, const Fp& sy, const Fp& hx,
-                    const Fp& hy, const Fp2& qx, const Fp2& qy) {
+B381_CALL Fp12 miller(const Table& K, const Fp& sx, const Fp& sy,
+                      const Fp& hx, const Fp& hy, const Fp2& qx,
+                      const Fp2& qy) {
   Fp12 f = fp12_one();
   G2J T{qx, qy, fp2_one()};
   Fp2 line[3];
@@ -156,9 +160,9 @@ B381_CALL Fp12 final_exp(const Fp12& f0, const Fp2* g) {
 
 // the lane's verdict: 1 when e(sig, -g2) e(H(m), pk) == 1
 template <class Table>
-B381_HD uint32_t verify_lane(const Table& K, const Fp& sx, const Fp& sy,
-                             const Fp& hx, const Fp& hy, const Fp2& qx,
-                             const Fp2& qy) {
+B381_CALL uint32_t verify_lane(const Table& K, const Fp& sx, const Fp& sy,
+                               const Fp& hx, const Fp& hy, const Fp2& qx,
+                               const Fp2& qy) {
   const Fp12 f = miller(K, sx, sy, hx, hy, qx, qy);
   Fp2 g[5];
 B381_UNROLL

@@ -2,7 +2,8 @@
 // same field, curve and per-lane verify routines that the CUDA kernels run
 // (p256_field.cuh, p256_group.cuh, p256_comb_group.cuh, ed25519_field.cuh,
 // ed25519_group.cuh, ed25519_comb_group.cuh, over field256.cuh, and
-// bls381_field.cuh, bls381_pairing.cuh, with their Fp operations counted),
+// bls381_field.cuh, bls381_group.cuh, bls381_pairing.cuh, with their Fp
+// operations counted),
 // and exposes them through a C interface so Python can hold them against
 // integer arithmetic before any time is spent on the card.
 //
@@ -11,6 +12,7 @@
 #include <vector>
 
 #define B381_COUNT_OPS 1
+#include "bls381_group.cuh"
 #include "bls381_pairing.cuh"
 #include "ed25519_comb_group.cuh"
 #include "ed25519_field.cuh"
@@ -165,6 +167,57 @@ void putb(uint32_t* dst, const b381::Fp& a) { b381::store_fp(dst, a); }
 
 const b381::Consts& consts(const uint32_t* table) {
   return *reinterpret_cast<const b381::Consts*>(table);
+}
+
+// the pairing kernel's grid, serialised: block by block, the threads of a
+// block placed as the kernel places them, then each stage on every thread
+// in turn (the ranks of a group one after another)
+template <int G>
+void bls_verify_group(int n, const uint32_t* prog, const uint32_t* table,
+                      const uint32_t* const* in, const int32_t* ok,
+                      uint32_t* out) {
+  using Shape = b381g::Grid<G>;
+  const int stride = b381g::lane_stride((int)prog[2]);
+  std::vector<uint32_t> smem((size_t)Shape::kLanes * stride);
+  struct Thread {
+    int lane, loc, rank;
+  };
+  for (int base = 0; base < n; base += Shape::kLanes) {
+    std::vector<Thread> live;
+    for (int t = 0; t < Shape::kThreads; ++t) {
+      int loc, rank;
+      if (!b381g::place<G>(t, loc, rank)) continue;
+      const int i = base + loc;
+      if (i >= n) continue;
+      if (ok[i] == 0) {
+        if (rank == 0) out[i] = 0;
+        continue;
+      }
+      live.push_back(Thread{i, loc, rank});
+    }
+    for (const Thread& th : live)
+      b381g::prologue<G>(th.rank, smem.data() + (size_t)th.loc * stride, in,
+                         (size_t)th.lane);
+    for (int s = 0; s < (int)prog[0]; ++s)
+      for (const Thread& th : live)
+        b381g::run_stage<G>(prog, s, th.rank,
+                            smem.data() + (size_t)th.loc * stride, table);
+    for (const Thread& th : live)
+      if (th.rank == 0)
+        out[th.lane] =
+            b381g::is_one(prog, 4, smem.data() + (size_t)th.loc * stride);
+  }
+}
+
+// one lane's slots after the first `stages` stages, ranks in turn
+template <int G>
+void bls_lane_slots(const uint32_t* prog, const uint32_t* table,
+                    const uint32_t* const* in, int stages, uint32_t* slots) {
+  for (int rank = 0; rank < G; ++rank)
+    b381g::prologue<G>(rank, slots, in, 0);
+  for (int s = 0; s < stages; ++s)
+    for (int rank = 0; rank < G; ++rank)
+      b381g::run_stage<G>(prog, s, rank, slots, table);
 }
 
 }  // namespace
@@ -497,6 +550,44 @@ void blsh_verify(int n, const uint32_t* table, const uint32_t* sig_x,
                                getb(sig_y + o), getb(hm_x + o),
                                getb(hm_y + o), qx, qy);
   }
+}
+
+// the kernel's stage program (prog: crypto/bls_stages.py's words) on the
+// grid of a group of g = 1, 3, 6 or 12 threads a lane, serialised
+void blsh_verify_group(int g, int n, const uint32_t* prog,
+                       const uint32_t* table, const uint32_t* sig_x,
+                       const uint32_t* sig_y, const uint32_t* hm_x,
+                       const uint32_t* hm_y, const uint32_t* pk_x0,
+                       const uint32_t* pk_x1, const uint32_t* pk_y0,
+                       const uint32_t* pk_y1, const int32_t* ok,
+                       uint32_t* out) {
+  const uint32_t* const in[8] = {sig_x, sig_y, hm_x,  hm_y,
+                                 pk_x0, pk_x1, pk_y0, pk_y1};
+  switch (g) {
+    case 1: bls_verify_group<1>(n, prog, table, in, ok, out); break;
+    case 3: bls_verify_group<3>(n, prog, table, in, ok, out); break;
+    case 6: bls_verify_group<6>(n, prog, table, in, ok, out); break;
+    case 12: bls_verify_group<12>(n, prog, table, in, ok, out); break;
+    default: break;
+  }
+}
+
+// one lane (lane: its 8 inputs, 96 words) through the first `stages`
+// stages at g threads; slots: the program's slot count x 12 words
+void blsh_lane_slots(int g, const uint32_t* prog, const uint32_t* table,
+                     const uint32_t* lane, int stages, uint32_t* slots) {
+  const uint32_t* const in[8] = {lane,      lane + 12, lane + 24, lane + 36,
+                                 lane + 48, lane + 60, lane + 72, lane + 84};
+  switch (g) {
+    case 1: bls_lane_slots<1>(prog, table, in, stages, slots); break;
+    case 6: bls_lane_slots<6>(prog, table, in, stages, slots); break;
+    case 12: bls_lane_slots<12>(prog, table, in, stages, slots); break;
+    default: break;
+  }
+}
+
+void blsh_fp_add_nr(const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  putb(out, b381::fp_add_nr(getb(a), getb(b)));
 }
 
 // the Fp products and squarings counted since the last reset

@@ -60,7 +60,8 @@ def test_sources_and_flags_target_hopper():
     assert set(csrc.SOURCES) == {"cuda_comb", "cuda_ecdsa", "cuda_ed25519",
                                  "cuda_eddsa", "cuda_bls"}
     assert "ed25519_comb_group.cuh" in csrc.HEADERS
-    assert {"bls381_field.cuh", "bls381_pairing.cuh"} <= set(csrc.HEADERS)
+    assert {"bls381_field.cuh", "bls381_group.cuh",
+            "bls381_pairing.cuh"} <= set(csrc.HEADERS)
     assert "arch=compute_90a,code=sm_90a" in csrc.NVCC_FLAGS
     # every header is a build dependency, and every header a source
     # includes is listed
@@ -93,7 +94,8 @@ def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
     assert report["cuda_ecdsa_g4"]["registers"] == 96
     assert (tmp_path / "build" / "libcuda_ecdsa_g4.so").exists()
     assert set(csrc.VARIANTS) == {"cuda_comb_g4", "cuda_ecdsa_g4",
-                                  "cuda_ed25519_g2", "cuda_eddsa_g2"}
+                                  "cuda_ed25519_g2", "cuda_eddsa_g2",
+                                  "cuda_bls_g6", "cuda_bls_miller"}
     csrc.build(names=["cuda_ed25519_g2"], force=True)
     args = (tmp_path / "args").read_text().split()
     assert "-DED_COMB_GROUP=2" in args and args[-1].endswith("cuda_ed25519.cu")
@@ -103,6 +105,12 @@ def test_a_variant_builds_its_source_with_its_define(monkeypatch, tmp_path):
     csrc.build(names=["cuda_comb_g4"], force=True)
     args = (tmp_path / "args").read_text().split()
     assert "-DCOMB_GROUP=4" in args and args[-1].endswith("cuda_comb.cu")
+    csrc.build(names=["cuda_bls_g6"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DBLS_GROUP=6" in args and args[-1].endswith("cuda_bls.cu")
+    csrc.build(names=["cuda_bls_miller"], force=True)
+    args = (tmp_path / "args").read_text().split()
+    assert "-DBLS_MILLER_ONLY=1" in args and args[-1].endswith("cuda_bls.cu")
 
 
 def test_launch_counter_is_thread_safe():

@@ -254,8 +254,8 @@ def _bls_items():
 @pytest.mark.parametrize("bsz", [1, 17, 130])
 def test_bls_kernel_matches_plain(cuda, bsz):
     """The pairing kernel against its plain version, mask bit for bit, on
-    lanes cycling through the six kinds (ragged against 32 lanes a
-    block), and against the host verify."""
+    lanes cycling through the six kinds (ragged against 2 lanes a block),
+    and against the host verify."""
     distinct = _bls_items()
     items = [distinct[i % len(distinct)] for i in range(bsz)]
     arrays = [torch.from_numpy(a).to(cuda) for a in cbl.verify_words(items)]
@@ -274,3 +274,48 @@ def test_bls_engine_on_the_card(cuda):
     assert eng.verify(items) == [bool(v) for v in (1, 1, 0, 0, 1, 0)]
     assert eng.route_launches == {"comb": 0, "generic": 1}
     assert eng.rung_launches == {8: 1}
+
+
+@pytest.fixture(scope="module")
+def bls_group_lanes():
+    """Eight distinct BLS lanes for the group builds: two valid votes, a
+    wrong key, a wrong message, a 43-vote aggregate (valid), the same
+    aggregate one signature short, an undecodable signature (ok = 0) and
+    random bytes (ok = 0); and their verdicts."""
+    keys = [bls.keygen(b"gpu-blsg-%d" % i) for i in range(43)]
+    msg = b"gpu-blsg-digest"
+    votes = [(msg, bls.sign(sk, msg), pk) for sk, pk in keys]
+    rng = np.random.default_rng(9)
+    items = [votes[0], votes[1],
+             (msg, votes[0][1], keys[1][1]),
+             (b"gpu-blsg-other", votes[2][1], keys[2][1]),
+             bls.aggregate_items(votes),
+             (msg, bls.aggregate_sigs([v[1] for v in votes[1:]]),
+              bls.aggregate_pubs([v[2] for v in votes])),
+             (msg, b"\x01" * bls.SIG_BYTES, keys[0][1]),
+             (msg, rng.bytes(bls.SIG_BYTES), rng.bytes(bls.PUB_BYTES))]
+    truth = [int(bls.verify_item(it)) for it in items]
+    assert truth == [1, 1, 0, 0, 1, 0, 0, 0]
+    return items, truth, {}
+
+
+@pytest.mark.parametrize("name", ["cuda_bls", "cuda_bls_g6"])
+@pytest.mark.parametrize("bsz", [1, 5, 7, 33, 128])
+def test_bls_group_builds_match_plain(cuda, bls_group_lanes, name, bsz):
+    """Both group builds (12 threads a lane, the library; 6, the variant)
+    against the plain version, bit for bit, at batch sizes that end inside
+    a warp of 2 or 5 lanes, with ok = 0 lanes, an undecodable signature and
+    a 43-vote aggregate among the lanes; the variant's launch is not
+    counted."""
+    items, truth, plain_by_bsz = bls_group_lanes
+    lanes = [items[i % len(items)] for i in range(bsz)]
+    arrays = [torch.from_numpy(a).to(cuda) for a in cbl.verify_words(lanes)]
+    assert arrays[-1].cpu().tolist() == [int(i % 8 < 6) for i in range(bsz)]
+    if bsz not in plain_by_bsz:
+        plain_by_bsz[bsz] = cbl.bls_verify_plain(*arrays)
+    assert (cbl.group_size(), cbl.group_size("cuda_bls_g6")) == (12, 6)
+    before = cbl.LAUNCHES.launches
+    got = cbl.launch(name, *arrays)
+    assert cbl.LAUNCHES.launches == before
+    assert torch.equal(got, plain_by_bsz[bsz])
+    assert got.cpu().tolist() == [truth[i % len(items)] for i in range(bsz)]

@@ -1,8 +1,8 @@
 """The CUDA kernels' arithmetic, built for the host: g++ compiles
 ``smartbft_tpu_torch/csrc/p256_field.cuh``, ``p256_group.cuh``,
 ``p256_comb_group.cuh``, ``ed25519_field.cuh``, ``ed25519_group.cuh``,
-``ed25519_comb_group.cuh``, ``bls381_field.cuh`` and ``bls381_pairing.cuh``
-(through host_harness.cc)
+``ed25519_comb_group.cuh``, ``bls381_field.cuh``, ``bls381_group.cuh`` and
+``bls381_pairing.cuh`` (through host_harness.cc)
 and the field, curve and per-lane verify routines and the group kernels'
 stage programs are held against Python integers — arithmetic faults show
 here, before any time on the card."""
@@ -18,6 +18,7 @@ import pytest
 from smartbft_tpu.crypto import bls12381 as jbls
 from smartbft_tpu_torch.crypto import bignum as bn
 from smartbft_tpu_torch.crypto import bls12381 as tbls
+from smartbft_tpu_torch.crypto import bls_stages as bs
 from smartbft_tpu_torch.crypto import cuda_bls as cbl
 from smartbft_tpu_torch.crypto import cuda_comb as cc
 from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
@@ -925,3 +926,119 @@ def test_bls_op_counts_of_the_bound_match_the_kernel(lib, bls_table):
     assert ops == {k: 7 * v for k, v in cbl.lane_ops().items()}
     assert counts.tolist() == [ops["b381_mul"], ops["b381_sqr"]]
 
+
+
+# ---------------------------------------------------------------------------
+# the pairing kernel's stage program (bls381_group.cuh over
+# crypto/bls_stages.py), serialised as the kernel's grid at 1, 3, 6 and 12
+# threads a lane
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bls_program():
+    return np.ascontiguousarray(bs.program().words)
+
+
+def _bls_group_batch():
+    """The eight lanes of :func:`_bls_items` and four more (a valid vote,
+    a wrong key, a quorum, random bytes with ok = 0), 12 lanes: the tail
+    ends inside a block at every group size (32, 10, 5 and 2 lanes a
+    block)."""
+    items = _bls_items()
+    rng = np.random.default_rng(5)
+    extra = [items[1], (items[0][0], items[0][1], items[2][2]), items[5],
+             (b"harness-x", rng.bytes(tbls.SIG_BYTES),
+              rng.bytes(tbls.PUB_BYTES))]
+    return items + extra
+
+
+def _bls_group(lib, g, program, table, words):
+    n = len(words[-1])
+    out = np.full(n, 7, np.uint32)
+    lib.blsh_verify_group(g, n, _ptr(program), _ptr(table),
+                          *[_ptr(np.ascontiguousarray(w)) for w in words],
+                          _ptr(out))
+    return out.tolist()
+
+
+@pytest.fixture(scope="module")
+def bls_group_truth():
+    items = _bls_group_batch()
+    words = cbl.verify_words(items)
+    truth = [int(tbls.verify_item(it)) for it in items]
+    assert truth == [int(jbls.verify_item(it)) for it in items]
+    assert truth == [1, 1, 1, 0, 0, 1, 0, 0, 1, 0, 1, 0]
+    return words, truth
+
+
+@pytest.mark.parametrize("group", [1, 3, 6, 12])
+def test_bls_group_program_over_a_ragged_tail(lib, bls_table, bls_program,
+                                              bls_group_truth, group):
+    """The stage program run serialised as the kernel's blocks and groups
+    run it gives ``verify_item``'s verdict of both packages on every lane
+    (valid votes, a wrong key, a wrong message, aggregated quorums, an
+    aggregate one signer short, an undecodable signature and random bytes,
+    whose ok = 0 lanes store 0 untouched by the program), and counts
+    ``lane_ops`` for each live lane and nothing for a dead one."""
+    words, truth = bls_group_truth
+    counts = np.zeros(2, np.uint64)
+    lib.blsh_reset_op_counts()
+    got = _bls_group(lib, group, bls_program, bls_table, words)
+    lib.blsh_op_counts(_ptr(counts))
+    assert got == truth
+    ops = cbl.mont_ops(*words)
+    assert ops == {k: 10 * v for k, v in cbl.lane_ops().items()}
+    assert counts.tolist() == [ops["b381_mul"], ops["b381_sqr"]]
+    one = [w[1:2].copy() for w in words]
+    assert _bls_group(lib, group, bls_program, bls_table, one) == truth[1:2]
+
+
+def test_bls_group_program_matches_the_plain_version(lib, bls_table,
+                                                     bls_program,
+                                                     bls_group_truth):
+    """The library's group size (``cuda_bls``'s) against
+    ``bls_verify_plain`` on the same words, mask for mask."""
+    import torch
+
+    words, truth = bls_group_truth
+    plain = cbl.bls_verify_plain(*[torch.from_numpy(w) for w in words])
+    assert plain.tolist() == truth
+    assert _bls_group(lib, 12, bls_program, bls_table, words) == truth
+
+
+@pytest.mark.parametrize("group", [1, 6, 12])
+def test_bls_group_program_values_match_the_one_thread_lane(
+        lib, bls_table, bls_program, group):
+    """Value for value: after the Miller loop's stages the program's
+    Miller slots hold the one-thread lane's ``miller`` (the first kernel's,
+    ``bls381_pairing.cuh``), and after the last stage its result slots
+    hold that lane's ``final_exp`` of it, on a valid vote and on a wrong
+    key."""
+    prog = bs.program()
+    items = _bls_items()
+    for k in (0, 3):
+        words = cbl.verify_words([items[k]])
+        lane = np.concatenate([w[0].view(np.uint32) for w in words[:8]])
+        f = np.zeros((12, 12), np.uint32)
+        lib.blsh_miller(_ptr(bls_table), _ptr(lane), _ptr(f))
+        e = np.zeros((12, 12), np.uint32)
+        lib.blsh_final_exp(_ptr(bls_table), _ptr(f), _ptr(e))
+        for stages, at, want in ((prog.miller_stages, prog.miller_result, f),
+                                 (prog.nstages, prog.result, e)):
+            slots = np.zeros((prog.nslots, 12), np.uint32)
+            lib.blsh_lane_slots(group, _ptr(bls_program), _ptr(bls_table),
+                                _ptr(lane), stages, _ptr(slots))
+            assert (slots[at] == want).all(), (k, stages)
+
+
+def test_bls_fp_sum_without_reduction(lib):
+    """``fp_add_nr``, a product operand's pre-sum: the exact sum of two
+    values below 2^383."""
+    rng = np.random.default_rng(83)
+    out = np.zeros(12, np.uint32)
+    for _ in range(20):
+        x, y = (int.from_bytes(rng.bytes(48), "little") % (2 * BP)
+                for _ in range(2))
+        lib.blsh_fp_add_nr(_ptr(_bw(x)), _ptr(_bw(y)), _ptr(out))
+        assert _bi(out) == x + y

@@ -1,9 +1,11 @@
 """The PTX carry chains of ``csrc/p256_field.cuh``,
-``csrc/ed25519_group.cuh`` and ``csrc/p256_comb_group.cuh`` on a CPU.
+``csrc/ed25519_group.cuh``, ``csrc/p256_comb_group.cuh`` and
+``csrc/bls381_field.cuh`` on a CPU.
 
 The device half of ``p_mul`` / ``p_sqr`` / ``p_add`` / ``p_sub``, of
-``e_mul`` / ``e_sqr`` / ``e_add`` / ``e_sub`` and of ``n_mul`` / ``n_sqr``
-is inline PTX that only nvcc builds, so the host harness (which compiles the portable twin) never runs
+``e_mul`` / ``e_sqr`` / ``e_add`` / ``e_sub``, of ``n_mul`` / ``n_sqr``
+and of the 12-word ``fp_mont`` / ``fp_add`` / ``fp_sub`` / ``fp_add_nr``
+mod the BLS12-381 p is inline PTX that only nvcc builds, so the host harness (which compiles the portable twin) never runs
 it.  Here the ``asm`` statements are read out
 of the header as they are, each run on a small emulator of the PTX
 integer instructions they use (``mad``/``madc`` with ``.lo``/``.hi`` and
@@ -17,7 +19,7 @@ import re
 import numpy as np
 import pytest
 
-from smartbft_tpu_torch.crypto import ed25519, p256
+from smartbft_tpu_torch.crypto import bls12381, ed25519, p256
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "smartbft_tpu_torch" \
     / "csrc"
@@ -57,7 +59,8 @@ def _parse_asm(src):
 
 #: the asm statements by function, per header
 HEADERS = {h: _device_asm(h) for h in ("p256_field.cuh", "ed25519_group.cuh",
-                                        "p256_comb_group.cuh")}
+                                        "p256_comb_group.cuh",
+                                        "bls381_field.cuh")}
 ASM = HEADERS["p256_field.cuh"]
 ED_ASM = HEADERS["ed25519_group.cuh"]
 N_ASM = HEADERS["p256_comb_group.cuh"]
@@ -260,6 +263,8 @@ CHAINS = {
                        "p_sub": 1},
     "ed25519_group.cuh": {"e_fold": 1, "e_add": 1, "e_sub": 1},
     "p256_comb_group.cuh": {"n_redc_round": 1, "n_final_sub": 1},
+    "bls381_field.cuh": {"b_row": 1, "b_redc_row": 1, "b_final_sub": 1,
+                         "fp_add_nr": 1, "b_sub": 1},
 }
 
 
@@ -368,3 +373,97 @@ def test_ptx_product_and_square_mod_n(kind):
         assert got == x * y * rinv % N, (x, y)
         if x < N:
             assert _num(n_redc(sqr_wide(_words(x)))) == x * x * rinv % N, x
+
+
+# ---------------------------------------------------------------------------
+# the 12-word field mod the 381-bit BLS12-381 p (bls381_field.cuh): CIOS
+# rounds of a row a * b[i] and a reduction row m * p with m = t[0] (-p^-1)
+# mod 2^32, a shift, two final subtractions; the products take operands
+# below 4p (a sum of up to four reduced values) and return values below p
+# ---------------------------------------------------------------------------
+
+BP = bls12381.P
+BR = 1 << 384
+BN0INV = 0xFFFCFFFD  # -p^-1 mod 2^32
+B_ASM = HEADERS["bls381_field.cuh"]
+BPW = _words(BP, 12)
+
+
+def b_final_sub(t):
+    res = _run(B_ASM["b_final_sub"][0], _env_arrays(t=(t, 0)))
+    keep, d = res.pop("keep"), [0] * 12
+    _store(res, "d", d)
+    assert keep in (0, M32)
+    return [(t[j] & keep) | (d[j] & ~keep & M32) for j in range(12)]
+
+
+def b_mont(a, b):
+    t = [0] * 13
+    for i in range(12):
+        _store(_run(B_ASM["b_row"][0],
+                    _env_arrays(t=(t, 0), a=(a, 0), bi=(b[i], 0))), "t", t)
+        m = t[0] * BN0INV & M32
+        _store(_run(B_ASM["b_redc_row"][0],
+                    _env_arrays(t=(t, 0), p=(BPW, 0), m=(m, 0))), "t", t)
+        assert t[0] == 0
+        t = t[1:] + [0]
+    return b_final_sub(b_final_sub(t) + [0])
+
+
+def b_add_nr(a, b):
+    s = list(a)
+    _store(_run(B_ASM["fp_add_nr"][0], _env_arrays(s=(s, 0), b=(b, 0))),
+           "s", s)
+    return s
+
+
+def b_add(a, b):
+    return b_final_sub(b_add_nr(a, b) + [0])
+
+
+def b_sub(a, b):
+    d = list(a)
+    res = _run(B_ASM["b_sub"][0], _env_arrays(d=(d, 0), b=(b, 0)))
+    mask = res.pop("mask")
+    _store(res, "d", d)
+    assert mask in (0, M32)
+    return b_add_nr(d, [w & mask for w in BPW])
+
+
+#: reduced edges: 0, 1, p - 1, R mod p (1 in Montgomery form) and values
+#: near 2^384 mod p
+B_EDGES = [0, 1, 2, BP - 1, BP - 2, (BP + 1) // 2, BR % BP, (BR - 1) % BP,
+           (BR - 2**32) % BP, (BR + 2**383) % BP]
+
+
+def _b_cases(kind, below):
+    if kind == "edges":
+        xs = [x for x in B_EDGES + [BP, BP + 1, 2 * BP - 1, 3 * BP + 7,
+                                    4 * BP - 1] if x < below]
+        return [(x, y) for x in xs for y in xs]
+    rng = np.random.default_rng(381)
+    return [(int.from_bytes(rng.bytes(48), "little") % below,
+             int.from_bytes(rng.bytes(48), "little") % below)
+            for _ in range(60)]
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_bls_product_and_square_mod_p(kind):
+    """Operands below 4p, as the stage program's pre-summed operands are;
+    results fully reduced."""
+    rinv = pow(BR, -1, BP)
+    for x, y in _b_cases(kind, 4 * BP):
+        got = _num(b_mont(_words(x, 12), _words(y, 12)))
+        assert got == x * y * rinv % BP, (x, y)
+        got = _num(b_mont(_words(x, 12), _words(x, 12)))
+        assert got == x * x * rinv % BP, x
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges"])
+def test_ptx_bls_add_and_sub_mod_p(kind):
+    for x, y in _b_cases(kind, BP):
+        a, b = _words(x, 12), _words(y, 12)
+        assert _num(b_add_nr(a, b)) == x + y, (x, y)
+        assert _num(b_add(a, b)) == (x + y) % BP, (x, y)
+        assert _num(b_sub(a, b)) == (x - y) % BP, (x, y)
+        assert _num(b_sub(b, a)) == (y - x) % BP, (x, y)
