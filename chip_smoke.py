@@ -62,23 +62,52 @@ Phases, one JSON line each; any failure exits non-zero:
                 among them.  All five launch counters are zeroed just
                 before each cell's run and read just after; a cell fails if
                 any kernel but its own launched.
-8. kernels    — one line with the five kernels: launches in their cell,
+8. sharded    — sharded mode through its own front door
+                (``testing.sharded.ShardedCluster(crypto="p256",
+                engine=TorchVerifyEngine(device="cuda"))`` ->
+                ``ShardSet.submit`` routed by ``ShardRouter``): consensus
+                groups of n=16 (BASELINE config [2]; batch 500, depth 16,
+                group-commit WAL) verifying through ONE shared dedupe
+                coalescer and engine.  Cell F1: one shard commits 32
+                decisions (16,000 requests), the control.  Cell F: four
+                shards (64 replicas, 64 keys) commit 8 decisions each, the
+                same 16,000 requests, submitted decision-major across the
+                shards so their quorum waves mix.  Every ring's keys and
+                every pad rung are warmed before the window.  Each cell
+                zeroes the five launch counters just before the cluster
+                starts and reads them just after it stops; it fails unless
+                every replica committed its shard's requests into one
+                ledger a shard, the mux invariants hold, the breaker
+                stayed shut, only the comb kernel launched (lanes = the
+                engine's slots), the coalescer attributed every wave to
+                the cell's shards (waves <= comb launches, per-shard items
+                >= the engine's verified signatures: only the attribution
+                counts items before the dedupe), and ``mixed_waves`` is 0
+                in F1 and at least 1 in F.  Prints tx/s (all shards and
+                each), launches and launches a decision, fill, items a
+                launch, the rung histogram, mixed waves, per-shard items
+                and items a verified signature (the dedupe ratio); after
+                the kernels line, ``sharded_busy``: busy = launches x the
+                comb kernel's ms at each rung from that line, and idle.
+9. kernels    — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
-                the plain version's time, and the bound.
-9. generic_groups — the generic P-256 kernel at each group size (threads
+                the plain version's time, and the bound.  The comb row
+                also carries its launches, lanes and rungs in cells F1
+                and F (``cells``), and is timed at their rungs too.
+10. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-10. ed_generic_groups — the same for the generic Ed25519 kernel: the
+11. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-11. comb_groups — the same for the P-256 comb kernel: the library (8
+12. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-12. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+13. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-13. bls_groups — the same for the BLS12-381 pairing kernel: the library
+14. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -636,6 +665,67 @@ def phase_bls(rng, keys):
     return records
 
 
+def bench_overrides(cfg, n: int, batch: int, requests: int, **extra):
+    """``cfg`` with the overrides every bench cell shares (the JAX
+    package's bench recipe): group-commit WAL, ``batch``-request
+    proposals, a pool and an inbox that hold the burst, and liveness
+    timeouts long enough that a wave in flight never deposes a healthy
+    leader; ``extra`` adds a cell's own."""
+    return dataclasses.replace(
+        cfg,
+        wal_group_commit=True,
+        request_batch_max_count=batch,
+        request_batch_max_interval=0.02,
+        request_pool_size=max(2 * requests, 800),
+        incoming_message_buffer_size=max(2000, 40 * n),
+        request_forward_timeout=300.0,
+        request_complain_timeout=600.0,
+        request_auto_remove_timeout=1200.0,
+        view_change_resend_interval=300.0,
+        view_change_timeout=1200.0,
+        leader_heartbeat_timeout=900.0,
+        **extra,
+    )
+
+
+def committed(app) -> int:
+    """Requests in ``app``'s ledger."""
+    return sum(len(app.requests_from_proposal(d.proposal))
+               for d in app.ledger())
+
+
+def ledger_digests(apps) -> set:
+    """The distinct chained ledger digests (hex) the replicas hold."""
+    from smartbft_tpu_torch.testing.app import CHAIN_SEED, chain_update
+
+    digests = set()
+    for a in apps:
+        h = CHAIN_SEED
+        for d in a.ledger():
+            h = chain_update(h, d.proposal.payload, d.proposal.metadata)
+        digests.add(h.hex())
+    return digests
+
+
+async def wait_committed(groups: dict, requests: int, t0: float,
+                         what: str) -> dict:
+    """Poll, awaiting so the cluster runs, until every replica of every
+    group in ``groups`` (key -> apps) has committed ``requests``; returns
+    the seconds from ``t0`` at which each group was done."""
+    done_at: dict = {}
+    deadline = time.perf_counter() + 600.0
+    while len(done_at) < len(groups):
+        for key, apps in groups.items():
+            if key not in done_at and all(committed(a) >= requests
+                                          for a in apps):
+                done_at[key] = time.perf_counter() - t0
+        if time.perf_counter() > deadline:
+            fail(f"{what}: did not commit {requests} requests "
+                 f"({sorted(done_at)} of {sorted(groups)} did)")
+        await asyncio.sleep(0.02)
+    return done_at
+
+
 async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
                       pipeline: int, wal_root: str, tag: str, pops=None):
     """One n-replica deployment over a shared engine: commit ``decisions``
@@ -648,13 +738,7 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         Ed25519CryptoProvider,
         P256CryptoProvider,
     )
-    from smartbft_tpu_torch.testing.app import (
-        CHAIN_SEED,
-        App,
-        SharedLedgers,
-        chain_update,
-        fast_config,
-    )
+    from smartbft_tpu_torch.testing.app import App, SharedLedgers, fast_config
     from smartbft_tpu_torch.testing.network import Network
     from smartbft_tpu_torch.utils.clock import Scheduler, WallClockDriver
 
@@ -668,22 +752,10 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
                     else P256CryptoProvider)
 
     def cfg(i):
-        return dataclasses.replace(
-            fast_config(i),
+        return bench_overrides(
+            fast_config(i), n, batch, requests,
             leader_rotation=False, decisions_per_leader=0,
-            pipeline_depth=pipeline,
-            wal_group_commit=True,
-            request_batch_max_count=batch,
-            request_batch_max_interval=0.02,
-            request_pool_size=max(2 * requests, 800),
-            incoming_message_buffer_size=max(2000, 40 * n),
-            request_forward_timeout=300.0,
-            request_complain_timeout=600.0,
-            request_auto_remove_timeout=1200.0,
-            view_change_resend_interval=300.0,
-            view_change_timeout=1200.0,
-            leader_heartbeat_timeout=900.0,
-        )
+            pipeline_depth=pipeline)
 
     coalescer = AsyncBatchCoalescer(
         engine, window=0.02, max_batch=2 * pipeline * engine.pad_sizes[-1],
@@ -699,10 +771,6 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         for i in node_ids
     ]
 
-    def committed(app) -> int:
-        return sum(len(app.requests_from_proposal(d.proposal))
-                   for d in app.ledger())
-
     driver.start()
     try:
         for a in apps:
@@ -710,22 +778,13 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         t0 = time.perf_counter()
         for k in range(requests):
             await apps[0].submit("bench", f"{tag}-req-{k}")
-        deadline = time.perf_counter() + 600.0
-        while not all(committed(a) >= requests for a in apps):
-            if time.perf_counter() > deadline:
-                fail(f"{tag}: cluster did not commit {requests} requests")
-            await asyncio.sleep(0.02)
-        elapsed = time.perf_counter() - t0
+        elapsed = (await wait_committed({tag: apps}, requests, t0,
+                                        f"e2e {tag}"))[tag]
     finally:
         for a in apps:
             await a.stop()
         await driver.stop()
-    digests = set()
-    for a in apps:
-        h = CHAIN_SEED
-        for d in a.ledger():
-            h = chain_update(h, d.proposal.payload, d.proposal.metadata)
-        digests.add(h.hex())
+    digests = ledger_digests(apps)
     return {
         "nodes": n, "requests": requests,
         "committed_min": min(committed(a) for a in apps),
@@ -751,51 +810,35 @@ def launch_counters() -> dict:
             "bls": cbl.LAUNCHES}
 
 
-def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
-               wal_root, tag, pops=None):
-    """One cell of the main path.  All five launch counters and the
-    engine's stats are zeroed just before the run and read just after it;
-    the cell must commit, keep every ledger equal, stay off the host, and
-    launch ``kernel`` and no other."""
-    from smartbft_tpu_torch.crypto.provider import VerifyStats
-
-    counters = launch_counters()
-    engine.stats = VerifyStats()
-    engine.rung_launches.clear()
-    engine.route_launches.update(comb=0, generic=0)
-    for c in counters.values():
-        c.reset()
-    run = asyncio.run(run_cluster(engine, rings, ids, decisions, batch,
-                                  pipeline, wal_root, tag, pops))
-    counts = {k: (c.launches, c.lanes) for k, c in counters.items()}
+def read_cell(engine, kernel, phase, tag, run):
+    """Read the launch counters and the engine's stats just after a cell's
+    run: the verify plane must have stayed off the host, ``kernel`` and
+    no other must have launched, its lanes must be the engine's slots and
+    cover its signatures.  Returns the cell's launch fields."""
+    counts = {k: (c.launches, c.lanes) for k, c in launch_counters().items()}
     stats, rungs = engine.stats, dict(engine.rung_launches)
-
-    if run["committed_min"] < run["requests"]:
-        fail(f"e2e {tag}: a replica committed {run['committed_min']} "
-             f"of {run['requests']}")
-    if run["ledger_digests"] != 1:
-        fail(f"e2e {tag}: replicas hold {run['ledger_digests']} "
-             "different ledgers")
     br = run.pop("breaker")
     if br["opens"] or br["host_fallback_batches"] or br["launch_failures"]:
-        fail(f"e2e {tag}: verify plane degraded: {br}")
+        fail(f"{phase} {tag}: verify plane degraded: {br}")
     if counts[kernel][0] == 0:
-        fail(f"e2e {tag}: the {kernel} kernel was never launched")
+        fail(f"{phase} {tag}: the {kernel} kernel was never launched")
     others = {k: v[0] for k, v in counts.items() if k != kernel and v[0]}
     if others:
-        fail(f"e2e {tag}: other kernels ran in the {kernel} cell: {others}")
+        fail(f"{phase} {tag}: other kernels ran in the {kernel} cell: "
+             f"{others}")
     lanes = counts[kernel][1]
     if lanes != stats.slots_used or lanes < stats.sigs_verified:
-        fail(f"e2e {tag}: kernel lanes {lanes} do not cover the engine's "
-             f"{stats.sigs_verified} signatures in {stats.slots_used} slots")
+        fail(f"{phase} {tag}: kernel lanes {lanes} do not cover the "
+             f"engine's {stats.sigs_verified} signatures in "
+             f"{stats.slots_used} slots")
     route = "comb" if kernel in ("comb", "ed_comb") else "generic"
     if engine.route_launches != {"comb": 0, "generic": 0,
                                  route: counts[kernel][0]}:
-        fail(f"e2e {tag}: engine routes {engine.route_launches} disagree "
-             f"with kernel counters {counts}")
+        fail(f"{phase} {tag}: engine routes {engine.route_launches} "
+             f"disagree with kernel counters {counts}")
     # the main-path rung carries the most lanes; a tie goes to the larger
     main_rung = max(rungs, key=lambda r: (r * rungs[r], r))
-    run.update({
+    return {
         "kernel": kernel,
         "kernel_launches": {k: v[0] for k, v in counts.items()},
         "kernel_lanes": {k: v[1] for k, v in counts.items()},
@@ -804,7 +847,25 @@ def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
         "fill_pct": round(stats.batch_fill_pct, 1),
         "rung_launches": {str(k): v for k, v in sorted(rungs.items())},
         "main_rung": main_rung, "breaker": br,
-    })
+    }
+
+
+def drive_cell(engine, kernel, rings, ids, decisions, batch, pipeline,
+               wal_root, tag, pops=None):
+    """One cell of the main path.  All five launch counters and the
+    engine's stats are zeroed just before the run and read just after it;
+    the cell must commit, keep every ledger equal, stay off the host, and
+    launch ``kernel`` and no other."""
+    zero_launch_counters(engine)
+    run = asyncio.run(run_cluster(engine, rings, ids, decisions, batch,
+                                  pipeline, wal_root, tag, pops))
+    if run["committed_min"] < run["requests"]:
+        fail(f"e2e {tag}: a replica committed {run['committed_min']} "
+             f"of {run['requests']}")
+    if run["ledger_digests"] != 1:
+        fail(f"e2e {tag}: replicas hold {run['ledger_digests']} "
+             "different ledgers")
+    run.update(read_cell(engine, kernel, "e2e", tag, run))
     return run
 
 
@@ -911,6 +972,186 @@ def phase_e2e_bls(wal_root, n=64, batch=500, pipeline=16, decisions=32):
     return {"bls": run}
 
 
+async def run_sharded(engine, shards: int, n: int, decisions: int,
+                      batch: int, pipeline: int, wal_root: str, tag: str):
+    """Sharded mode through its front door: ``ShardedCluster(crypto=
+    "p256", engine=engine)`` builds ``shards`` consensus groups of ``n``
+    replicas (per-shard keyrings, WALs, ledgers) over one shared dedupe
+    coalescer, and ``ShardSet.submit`` routes ``decisions`` x ``batch``
+    requests a shard through the ``ShardRouter`` — the recipe of the JAX
+    package's sharded bench: its config overrides, every ring's keys and
+    every pad rung warmed before the window, client ids resolved outside
+    it, decision-major submission across the shards, the wall clock.
+    The window ends when every replica of every shard has committed its
+    shard's requests.  Returns the run's measurements and the coalescer
+    (the caller reads its counters)."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.testing.sharded import (
+        ShardedCluster,
+        sharded_config,
+    )
+    from smartbft_tpu_torch.utils.clock import WallClockDriver
+
+    requests = decisions * batch
+
+    def cfg(s, i):
+        return bench_overrides(sharded_config(i, depth=pipeline), n, batch,
+                               requests)
+
+    cluster = ShardedCluster(
+        os.path.join(wal_root, tag), shards=shards, n=n, depth=pipeline,
+        crypto="p256", engine=engine, window=0.02, config_fn=cfg, seed=13)
+    if cluster.engine is not engine:
+        fail(f"sharded {tag}: the cluster did not take the CUDA engine")
+    for ring in cluster._rings.values():
+        engine.prewarm_keys(ring[1].public_keys.values())
+    ring = cluster._rings[0][1]
+    engine.prewarm_shapes(p256.make_item(
+        b"warm", p256.sign_raw(ring.private_key, b"warm"),
+        ring.public_keys[1]))
+    for s in range(shards):
+        cluster.client_for_shard(s, 3)
+    zero_launch_counters(engine)
+    driver = WallClockDriver(cluster.scheduler, tick_interval=0.01)
+    driver.start()
+    try:
+        await cluster.start()
+        t0 = time.perf_counter()
+        for j in range(decisions):
+            for s in range(shards):
+                for k in range(batch):
+                    cid = cluster.client_for_shard(s, (j + k) % 4)
+                    await cluster.submit(cid, f"r-{s}-{j}-{k}")
+        done_at = await wait_committed(
+            {sh.shard_id: sh.apps for sh in cluster.shard_list}, requests,
+            t0, f"sharded {tag}: shards")
+        elapsed = time.perf_counter() - t0
+        cluster.check_invariants()
+    finally:
+        await cluster.stop()
+        await driver.stop()
+    per_shard = {}
+    for sh in cluster.shard_list:
+        digests = ledger_digests(sh.apps)
+        per_shard[str(sh.shard_id)] = {
+            "committed_min": min(committed(a) for a in sh.apps),
+            "decisions": len(sh.apps[0].ledger()),
+            "ledger_digests": len(digests),
+            "ledger_digest": sorted(digests)[0][:16],
+            "elapsed_s": round(done_at[sh.shard_id], 3),
+            "tx_per_s": round(requests / done_at[sh.shard_id], 1),
+        }
+    return {
+        "shards": shards, "nodes_per_shard": n, "requests": shards * requests,
+        "decisions": sum(v["decisions"] for v in per_shard.values()),
+        "elapsed_s": round(elapsed, 3),
+        "tx_per_s": round(shards * requests / elapsed, 1),
+        "per_shard": per_shard,
+        "coalescer": cluster.coalescer.shard_snapshot(),
+        "breaker": cluster.coalescer.fault_snapshot(),
+    }
+
+
+def zero_launch_counters(engine) -> None:
+    """All five launch counters and the engine's stats to 0."""
+    from smartbft_tpu_torch.crypto.provider import VerifyStats
+
+    engine.stats = VerifyStats()
+    engine.rung_launches.clear()
+    engine.route_launches.update(comb=0, generic=0)
+    for c in launch_counters().values():
+        c.reset()
+
+
+def sharded_cell(engine, tag, shards, n, decisions, batch, pipeline,
+                 wal_root):
+    """One sharded cell; its counters are zeroed inside :func:`run_sharded`
+    just before the cluster starts and read here just after it stops.
+    Fails unless every replica of every shard committed its shard's
+    requests into one ledger a shard (the mux invariants are checked in
+    the run), the cell passes :func:`read_cell` for the comb kernel, the
+    coalescer attributed its waves to exactly the cell's shards and they
+    cover what the engine verified, and waves mixed shards exactly when
+    there was more than one."""
+    run = asyncio.run(run_sharded(engine, shards, n, decisions, batch,
+                                  pipeline, wal_root, tag))
+    want = decisions * batch
+    for sid, sh in run["per_shard"].items():
+        if sh["committed_min"] < want:
+            fail(f"sharded {tag}: shard {sid} has a replica that committed "
+                 f"{sh['committed_min']} of {want}")
+        if sh["ledger_digests"] != 1:
+            fail(f"sharded {tag}: shard {sid}'s replicas hold "
+                 f"{sh['ledger_digests']} different ledgers")
+    run.update(read_cell(engine, "comb", "sharded", tag, run))
+    co = run.pop("coalescer")
+    per_tag = {k: v["items"] for k, v in co["per_tag"].items()}
+    # nothing but the attribution counts items before the dedupe merges
+    # them, so hold it to what the engine counts on its own: every wave is
+    # a shard's and launched the kernel at least once, and every signature
+    # the engine verified came from a shard's submission
+    if sorted(per_tag) != [str(s) for s in range(shards)] \
+            or co["tagged_waves"] != co["waves"] \
+            or not 0 < co["waves"] <= run["kernel_launches"]["comb"] \
+            or sum(per_tag.values()) < run["sigs_verified"]:
+        fail(f"sharded {tag}: per-shard items {per_tag} in "
+             f"{co['tagged_waves']} of {co['waves']} waves do not cover the "
+             f"engine's {run['sigs_verified']} signatures in "
+             f"{run['kernel_launches']['comb']} launches")
+    if (co["mixed_waves"] > 0) != (shards > 1):
+        fail(f"sharded {tag}: {co['mixed_waves']} mixed waves with "
+             f"{shards} shard(s)")
+    run.update({
+        "items_per_launch": round(
+            run["sigs_verified"] / run["kernel_launches"]["comb"], 1),
+        "waves": co["waves"], "mixed_waves": co["mixed_waves"],
+        "max_shards_in_wave": co["max_tags_in_wave"],
+        "per_shard_items": per_tag,
+        "items_per_signature": round(
+            sum(per_tag.values()) / run["sigs_verified"], 2),
+    })
+    return run
+
+
+def phase_sharded(wal_root, n=16, batch=500, pipeline=16):
+    """Cells F1 and F: sharded mode on one fresh CUDA engine (the P-256
+    comb kernel).  F1: one shard of n = 16 (BASELINE config [2]) commits
+    32 decisions through the front door, the control.  F: four shards of
+    n = 16 (64 replicas, 64 keys) commit 8 decisions each, 16,000
+    requests as in cell A, their waves mixing shards in one coalescer."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
+
+    engine = TorchVerifyEngine(device="cuda", scheme=p256)
+    f1 = sharded_cell(engine, "f1", 1, n, 32, batch, pipeline, wal_root)
+    f = sharded_cell(engine, "f", 4, n, 8, batch, pipeline, wal_root)
+    emit({
+        "phase": "sharded", "ok": True,
+        "deployment": {"nodes_per_shard": n, "request_batch_max_count": batch,
+                       "pipeline_depth": pipeline, "wal_group_commit": True,
+                       "shared_dedupe_coalescer": True, "window_s": 0.02,
+                       "scheme": "p256", "router_seed": 0},
+        "f1_one_shard": f1, "f_four_shards": f,
+    })
+    return {"f1": f1, "f": f}
+
+
+def busy_line(cells, comb_row):
+    """Device busy of the sharded cells: launches at each rung times the
+    comb kernel's ms at that rung from the kernels line, and the idle
+    share of the cell's elapsed time."""
+    out = {}
+    for tag, cell in cells.items():
+        busy = sum(k * comb_row["ms_by_rung"][r]
+                   for r, k in cell["rung_launches"].items())
+        out[tag] = {"busy_ms": round(busy, 3),
+                    "idle_pct": round(100.0 * (1.0 - busy / 1e3
+                                               / cell["elapsed_s"]), 3),
+                    "elapsed_s": cell["elapsed_s"]}
+    emit({"phase": "sharded_busy", "ok": True, "cells": out})
+    return out
+
+
 def bls_args16(rec):
     """The pairing kernel's 16384-lane arguments: the 2048-lane batch of
     phase bls eight times over."""
@@ -976,12 +1217,13 @@ def bls_kernel_row(rec, cell, clock_hz, sms):
     }
 
 
-def phase_kernels(recs, cells, clock_hz, sms):
+def phase_kernels(recs, cells, clock_hz, sms, sharded):
     """The kernels line: per kernel, time at every rung its cell used, at
     the main rung and at 16384 (CUDA events), the plain version's time and
     the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
     ``recs``: the kernel phases' records by kernel name; ``cells``: the
-    e2e cells by kernel name."""
+    e2e cells by kernel name; ``sharded``: the sharded cells by tag, whose
+    comb launches and rungs the comb kernel's row carries too."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
@@ -1006,12 +1248,15 @@ def phase_kernels(recs, cells, clock_hz, sms):
     )
     for name, src, replaces, mod, kern, plain, lane_bytes, key in specs:
         cell, rec = cells[key], recs[key]
+        more = sharded if key == "comb" else {}
         rung = cell["main_rung"]
         top = max(rec)  # 16384 lanes, the top rung
         args16 = rec[top]["args"]
         args_r = first_lanes(args16, rung)
         ms_by_rung = {}
-        for r in cell["rung_launches"]:
+        rungs = set(cell["rung_launches"]).union(
+            *(c["rung_launches"] for c in more.values()))
+        for r in sorted(rungs, key=int):
             args_b = first_lanes(args16, int(r))
             ms_by_rung[r] = round(time_ms(lambda: kern(*args_b), 20), 4)
         ms_rung = ms_by_rung[str(rung)]
@@ -1053,6 +1298,13 @@ def phase_kernels(recs, cells, clock_hz, sms):
             "mont_ops": ops_r, "mont_ops_16384": ops_16k,
             "imads": imads(ops_r), "imads_16384": imads(ops_16k),
         })
+        if more:
+            rows[-1]["cells"] = {
+                tag: {"launches": c["kernel_launches"][key],
+                      "lanes": c["kernel_lanes"][key],
+                      "launches_per_decision": c["launches_per_decision"],
+                      "rung_launches": c["rung_launches"]}
+                for tag, c in {"a": cell, **more}.items()}
     rows.append(bls_kernel_row(recs["bls"], cells["bls"], clock_hz, sms))
     return rows
 
@@ -1200,7 +1452,10 @@ def main() -> int:
         cells = {**timed("e2e_p256", phase_e2e, wal_root, p256),
                  **timed("e2e_ed25519", phase_e2e, wal_root, ed25519),
                  **timed("e2e_bls", phase_e2e_bls, wal_root)}
-        rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms)
+        sharded = timed("sharded", phase_sharded, wal_root)
+        rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
+                      sharded)
+        busy_line(sharded, rows[0])
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

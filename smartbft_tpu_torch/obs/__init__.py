@@ -1,10 +1,25 @@
-"""Flight recorder and view-change phase decomposition.
+"""Flight recorder, view-change decomposition, SLOs and health.
 
-Only the two modules the protocol core imports are part of the port so
-far: :mod:`.recorder` (bounded span events, nop when disabled) and
-:mod:`.vcphases` (complain → depose → ViewData → new view → first commit).
+A bounded-memory :class:`~smartbft_tpu_torch.obs.recorder.TraceRecorder`
+of structured span events (injectable clock, nop when disabled — the
+``DisabledProvider`` pattern, so the hot path pays one attribute check
+when tracing is off), a :class:`~smartbft_tpu_torch.obs.vcphases.
+ViewChangePhaseTracker` that decomposes the complain → depose → ViewData
+→ new-view → first-commit pipeline into measured sub-phases, the
+per-request critical path (:mod:`.critpath`), the multi-window SLO
+evaluator (:mod:`.slo`) and the health monitor over it (:mod:`.health`),
+and the pure ``assemble_*`` helpers that fold them into bench-row JSON
+blocks.  The report renderer and the baseline guard are not ported yet.
 """
 
+from .critpath import (  # noqa: F401
+    SEGMENTS,
+    assemble_critical_path_block,
+)
+from .health import (  # noqa: F401
+    HealthMonitor,
+    aggregate_cluster_verdict,
+)
 from .recorder import (  # noqa: F401
     NOP_RECORDER,
     NopRecorder,
@@ -12,7 +27,31 @@ from .recorder import (  # noqa: F401
     TraceRecorder,
     assemble_trace_block,
 )
+from .slo import (  # noqa: F401
+    SLOEvaluator,
+    SLORule,
+    SLOSpec,
+    default_slo_spec,
+)
 from .vcphases import (  # noqa: F401
     ViewChangePhaseTracker,
     assemble_viewchange_block,
 )
+
+__all__ = [
+    "NOP_RECORDER",
+    "NopRecorder",
+    "SEGMENTS",
+    "SpanEvent",
+    "TraceRecorder",
+    "assemble_critical_path_block",
+    "assemble_trace_block",
+    "ViewChangePhaseTracker",
+    "assemble_viewchange_block",
+    "HealthMonitor",
+    "aggregate_cluster_verdict",
+    "SLOEvaluator",
+    "SLORule",
+    "SLOSpec",
+    "default_slo_spec",
+]

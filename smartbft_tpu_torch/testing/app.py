@@ -14,7 +14,6 @@ test configuration.
 from __future__ import annotations
 
 import asyncio
-import hashlib
 import threading
 from typing import Optional
 
@@ -34,6 +33,7 @@ from ..config import Configuration
 from ..consensus import Consensus
 from ..messages import Proposal, Signature, ViewMetadata
 from ..metrics import InMemoryProvider, MetricsBundle
+from ..snapshot import CHAIN_SEED, chain_update  # noqa: F401 — re-exported
 from ..types import Decision, Reconfig, RequestInfo, SyncResponse
 from ..utils.clock import Scheduler
 from ..utils.memo import BoundedMemo
@@ -57,6 +57,46 @@ class BatchPayload:
     def __post_init__(self):
         if self.requests is None:
             object.__setattr__(self, "requests", [])
+
+
+def barrier_request_bytes(epoch: int, old_shards: int,
+                          new_shards: int) -> bytes:
+    """Epoch ``epoch``'s reshard barrier command in the TestRequest
+    envelope — the ONE construction both the in-process shard harness
+    (AppShard.submit_barrier) and the socket control plane (ControlServer
+    cmd=reshard) order through their streams, so the marker the mux scan
+    and ReplicaApp.barrier_seq look for can never drift between them."""
+    from ..shard.epoch import (
+        RESHARD_CLIENT,
+        barrier_request_id,
+        reshard_command_payload,
+    )
+
+    return encode(TestRequest(
+        client_id=RESHARD_CLIENT,
+        request_id=barrier_request_id(epoch),
+        payload=reshard_command_payload(epoch, old_shards, new_shards),
+    ))
+
+
+async def submit_barrier_request(consensus, epoch: int, old_shards: int,
+                                 new_shards: int) -> None:
+    """Order the barrier command through ``consensus``, treating the
+    pool's already-exists/already-processed dedup as success (a recovered
+    coordinator re-submits; client dedup makes that exactly-once).
+    ``internal=True``: the barrier must not be shed by the client-facing
+    admission gate — a reshard is how an over-the-knee deployment scales
+    OUT, so the gate refusing its own remediation would lock the cluster
+    into shedding forever."""
+    from ..core.pool import ReqAlreadyExistsError, ReqAlreadyProcessedError
+
+    try:
+        await consensus.submit_request(
+            barrier_request_bytes(epoch, old_shards, new_shards),
+            internal=True,
+        )
+    except (ReqAlreadyExistsError, ReqAlreadyProcessedError):
+        pass
 
 
 def fast_config(self_id: int) -> Configuration:
@@ -87,19 +127,6 @@ def fast_config(self_id: int) -> Configuration:
         leader_rotation=False,
         decisions_per_leader=0,
     )
-
-
-#: seed of the chained ledger digest (the JAX package's snapshot store
-#: uses the same seed and fold, so the two digests compare directly)
-CHAIN_SEED = b"\x00" * 32
-
-
-def chain_update(digest: bytes, payload: bytes, metadata: bytes) -> bytes:
-    """Fold one committed decision into the chained ledger digest."""
-    h = hashlib.sha256(digest)
-    h.update(payload)
-    h.update(metadata)
-    return h.digest()
 
 
 class SharedLedgers:
@@ -180,6 +207,15 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
         self.verification_seq = 0
         self.delay_sync_by: float = 0.0
         self.membership_changed = False
+        # snapshot handoff provenance: a node seeded from a
+        # donor shard's snapshot starts with the donor's chained digests
+        # and committed-request count instead of replaying its history
+        self.base_height = 0
+        self.base_digest = ""
+        self.base_ids_digest = ""
+        self.base_request_count = 0
+        self.base_recent_ids: list[str] = []
+        self.base_kv: dict[str, bytes] = {}
         # read plane: the committed KV view (key = client id,
         # value = latest committed payload), folded LAZILY from the
         # shared ledger on each read — O(new decisions) per read via the
@@ -503,10 +539,12 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
             self.comm.attach(self.consensus)
             await self.comm.start()
             await self.consensus.start()
+            self._seed_pool_dedup()
             return
         self.node.consensus = self.consensus
         self.node.start()
         await self.consensus.start()
+        self._seed_pool_dedup()
 
     async def stop(self) -> None:
         if self.consensus is not None:
@@ -577,8 +615,9 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
                 # first read, or a fresh shared view: (re)build from the
                 # installed base
                 self._read_scan = 0
-                self._kv = {}
-                self._read_chain = CHAIN_SEED
+                self._kv = dict(self.base_kv)
+                self._read_chain = (bytes.fromhex(self.base_digest)
+                                    if self.base_digest else CHAIN_SEED)
             for d in ledger[self._read_scan:]:
                 self._read_chain = chain_update(self._read_chain,
                                                 d.proposal.payload,
@@ -596,7 +635,33 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
                         continue
                     self._kv[req.client_id] = bytes(req.payload)
             self._read_scan = len(ledger)
-            return len(ledger), self._read_chain, self._kv.get(key)
+            return (self.base_height + len(ledger), self._read_chain,
+                    self._kv.get(key))
+
+    def serve_read(self, key: str):
+        """One keyed read from committed state, stamped — the in-process
+        twin of ``ReplicaApp._serve_read`` (same gate, same reply shape),
+        which is what lets the shard front door, the chaos oracle, and
+        the bench apply the client-side rules of ``core.readplane``
+        unchanged across both embedders."""
+        from ..net.framing import ReadResponse
+
+        if not self._read_gate.allow():
+            self.read_stats.sheds += 1
+            spent, burst = self._read_gate.occupancy()
+            return ReadResponse(
+                key=key, shed=True, shed_kind="read_gate",
+                retry_after_ms=int(self._read_gate.retry_after() * 1000),
+                occupancy=spent, high_water=burst,
+            )
+        height, chain, value = self._read_view(key)
+        found = value is not None
+        self.read_stats.note_served(at_base=False, found=found)
+        return ReadResponse(
+            key=key, found=found, value=value if found else b"",
+            height=height, state_digest=chain,
+            anchor_height=self.base_height, at_base=False,
+        )
 
     def read_committed(self, key: str):
         """The facade ``read_hook`` shape: ``(value, height,
@@ -604,7 +669,99 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
         height, chain, value = self._read_view(key)
         if value is None:
             return None
-        return value, height, chain, 0
+        return value, height, chain, self.base_height
+
+    # -- snapshot handoff ---------------------------------------
+
+    def capture_snapshot(self) -> dict:
+        """Chained application snapshot of this node's committed state —
+        the in-process twin of ``smartbft_tpu_torch.snapshot``'s capture: the
+        chain digest and request-id digest fold over any installed base
+        first, so snapshots CHAIN across repeated handoffs and two nodes
+        with the same committed history produce identical digests no
+        matter how many snapshot installs either went through."""
+        from ..snapshot import (
+            CHAIN_SEED,
+            RECENT_IDS_CAP,
+            chain_update,
+            fold_ids,
+        )
+
+        chain = (bytes.fromhex(self.base_digest)
+                 if self.base_digest else CHAIN_SEED)
+        ids_digest = (bytes.fromhex(self.base_ids_digest)
+                      if self.base_ids_digest else CHAIN_SEED)
+        count = self.base_request_count
+        recent = list(self.base_recent_ids)
+        kv = dict(self.base_kv)
+        ledger = self.ledger()
+        for d in ledger:
+            chain = chain_update(chain, d.proposal.payload,
+                                 d.proposal.metadata)
+            try:
+                ids = [str(i) for i in
+                       self.requests_from_proposal(d.proposal)]
+            except Exception:  # noqa: BLE001 — foreign payload shape
+                ids = []
+            ids_digest = fold_ids(ids_digest, ids)
+            count += len(ids)
+            recent.extend(ids)
+            if not d.proposal.payload:
+                continue
+            try:
+                batch = decode(BatchPayload, d.proposal.payload)
+            except Exception:  # noqa: BLE001 — foreign payload
+                continue
+            for raw in batch.requests:
+                try:
+                    req = decode(TestRequest, raw)
+                except Exception:  # noqa: BLE001 — foreign request
+                    continue
+                kv[req.client_id] = bytes(req.payload)
+        return {
+            "height": self.base_height + len(ledger),
+            "chain_digest": chain.hex(),
+            "ids_digest": ids_digest.hex(),
+            "request_count": count,
+            "recent_ids": recent[-RECENT_IDS_CAP:],
+            # the committed KV view rides the handoff so a seeded node's
+            # read stamps match a full-history node's bit-for-bit (keys
+            # whose last write predates the base must not vanish from
+            # quorum reads after a scale-out)
+            "kv": {k: v.hex() for k, v in kv.items()},
+        }
+
+    def install_base_state(self, snapshot: dict) -> None:
+        """Seed this NOT-YET-STARTED node from a donor's
+        :meth:`capture_snapshot` — the receiver half of the scale-out
+        handoff.  The donor's recent request ids arm the pool's dedup
+        memory at :meth:`start`, so a client resubmitting a request the
+        donor already committed is refused instead of double-delivered."""
+        if self.consensus is not None:
+            raise RuntimeError(
+                f"node {self.id}: install_base_state on a started node"
+            )
+        self.base_height = int(snapshot.get("height", 0))
+        self.base_digest = str(snapshot.get("chain_digest", ""))
+        self.base_ids_digest = str(snapshot.get("ids_digest", ""))
+        self.base_request_count = int(snapshot.get("request_count", 0))
+        self.base_recent_ids = [str(r) for r in
+                                snapshot.get("recent_ids", [])]
+        self.base_kv = {str(k): bytes.fromhex(v) for k, v in
+                        (snapshot.get("kv") or {}).items()}
+
+    def _seed_pool_dedup(self) -> None:
+        pool = getattr(self.consensus, "pool", None)
+        if pool is None or not self.base_recent_ids \
+                or not hasattr(pool, "seed_processed"):
+            return
+        infos = []
+        for rid in self.base_recent_ids:
+            client, sep, req = rid.partition(":")
+            if sep:
+                infos.append(RequestInfo(client_id=client, request_id=req))
+        pool.seed_processed(infos)
+
 
 async def wait_for(predicate, scheduler: Scheduler, timeout: float = 30.0, step: float = 0.05):
     """Advance logical+real time until predicate() or timeout.

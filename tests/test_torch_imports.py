@@ -45,6 +45,17 @@ def test_scan_covers_the_kernel_modules():
         "cuda_bls.cu"}
 
 
+def test_scan_covers_the_sharded_slice():
+    """Sharded mode and what it imports, under the JAX package's names."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"shard/__init__.py", "shard/router.py", "shard/epoch.py",
+            "shard/mux.py", "shard/set.py", "shard/autoscale.py",
+            "obs/slo.py", "obs/health.py", "obs/critpath.py",
+            "snapshot/__init__.py", "snapshot/store.py", "net/__init__.py",
+            "net/framing.py", "testing/engine_faults.py",
+            "testing/toy_scheme.py", "testing/sharded.py"} <= have
+
+
 def test_importing_the_port_loads_no_jax():
     import subprocess
     import sys
