@@ -89,25 +89,52 @@ Phases, one JSON line each; any failure exits non-zero:
                 and items a verified signature (the dedupe ratio); after
                 the kernels line, ``sharded_busy``: busy = launches x the
                 comb kernel's ms at each rung from that line, and idle.
-9. kernels    — one line with the five kernels: launches in their cell,
+9. verify_plane — the coalescer's flush hold, its view-flip warm path and
+                the control plane on the comb kernel, through the same
+                front door (``ShardedCluster(crypto="p256",
+                engine=TorchVerifyEngine(device="cuda"))``) on one fresh
+                engine.  Cell G0: cell F's deployment (4 shards of n=16,
+                8 decisions each), submission paced 0.03 s between
+                decision rounds (the JAX package's ``benchmarks/mesh.py``
+                recipe), no hold: the ungated control.  Cell G: the same
+                with ``verify_flush_hold = 0.25`` in every replica's
+                Configuration; it fails unless the live coalescer's
+                ``mesh_snapshot()["hold"]["hold_s"]`` is 0.25 and it held
+                a wave, and prints its hold counters and launches a
+                decision, fill and tx/s beside G0's.  Cell V: cell F1's
+                deployment (1 shard of n=16, 32 decisions); after 8
+                decisions the leader is muted until every other replica
+                has installed a new view, then unmuted; it fails unless a
+                new view came, the coalescer ran its flip warm, the comb
+                kernel launched after the flip and every replica holds one
+                ledger, and prints the view-change seconds.  Cell K: G's
+                cluster with ``control.run_control_loop`` ticking every
+                0.25 s for the whole burst; it prints the loop's ticks,
+                actions and vetoes, and fails if the loop raised or a
+                shard was left with two ledgers.  Every cell passes
+                ``read_cell`` for the comb kernel (breaker 0, only the
+                comb kernel, lanes cover the signatures) and the mux's
+                checks; ``verify_plane_busy`` follows the kernels line.
+10. kernels   — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
-                also carries its launches, lanes and rungs in cells F1
-                and F (``cells``), and is timed at their rungs too.
-10. generic_groups — the generic P-256 kernel at each group size (threads
+                also carries its launches, lanes and rungs in cells F1,
+                F, G0, G, V and K (``cells``), and is timed at their
+                rungs too.
+11. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-11. ed_generic_groups — the same for the generic Ed25519 kernel: the
+12. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-12. comb_groups — the same for the P-256 comb kernel: the library (8
+13. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-13. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+14. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-14. bls_groups — the same for the BLS12-381 pairing kernel: the library
+15. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -973,7 +1000,10 @@ def phase_e2e_bls(wal_root, n=64, batch=500, pipeline=16, decisions=32):
 
 
 async def run_sharded(engine, shards: int, n: int, decisions: int,
-                      batch: int, pipeline: int, wal_root: str, tag: str):
+                      batch: int, pipeline: int, wal_root: str, tag: str,
+                      hold: float = 0.0, pace: float = 0.0,
+                      control_interval=None, overrides=None,
+                      at_decision=None):
     """Sharded mode through its front door: ``ShardedCluster(crypto=
     "p256", engine=engine)`` builds ``shards`` consensus groups of ``n``
     replicas (per-shard keyrings, WALs, ledgers) over one shared dedupe
@@ -984,7 +1014,21 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     it, decision-major submission across the shards, the wall clock.
     The window ends when every replica of every shard has committed its
     shard's requests.  Returns the run's measurements and the coalescer
-    (the caller reads its counters)."""
+    (the caller reads its counters).
+
+    ``hold``: ``Configuration.verify_flush_hold`` of every replica (0, the
+    default, for no hold).  ``pace``: seconds slept after each decision
+    round of submissions (the JAX package's ``benchmarks/mesh.py``
+    recipe), so waves arrive staggered.  ``control_interval``: run the
+    control loop (``control.run_control_loop``) every that many seconds
+    for the whole window; a reshard it orders moves clients between
+    shards, so the window then ends when the front door's mux has
+    delivered every request the cell submitted, and each shard is held to
+    one ledger.  ``overrides``: more Configuration fields for every
+    replica.  ``at_decision``: ``(j, hook)`` awaits ``hook(cluster, t0)``
+    once ``j`` decision rounds are submitted and merges the dict it
+    returns into the result."""
+    from smartbft_tpu_torch.control import run_control_loop
     from smartbft_tpu_torch.crypto import p256
     from smartbft_tpu_torch.testing.sharded import (
         ShardedCluster,
@@ -995,12 +1039,15 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     requests = decisions * batch
 
     def cfg(s, i):
-        return bench_overrides(sharded_config(i, depth=pipeline), n, batch,
-                               requests)
+        return dataclasses.replace(
+            bench_overrides(sharded_config(i, depth=pipeline), n, batch,
+                            requests, verify_flush_hold=hold),
+            **(overrides or {}))
 
     cluster = ShardedCluster(
         os.path.join(wal_root, tag), shards=shards, n=n, depth=pipeline,
-        crypto="p256", engine=engine, window=0.02, config_fn=cfg, seed=13)
+        crypto="p256", engine=engine, window=0.02, config_fn=cfg, seed=13,
+        collect_entries=control_interval is not None)
     if cluster.engine is not engine:
         fail(f"sharded {tag}: the cluster did not take the CUDA engine")
     for ring in cluster._rings.values():
@@ -1014,20 +1061,39 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     zero_launch_counters(engine)
     driver = WallClockDriver(cluster.scheduler, tick_interval=0.01)
     driver.start()
+    stop_control, control, hooked, submitted = asyncio.Event(), None, {}, []
     try:
         await cluster.start()
+        if control_interval is not None:
+            control = asyncio.create_task(run_control_loop(
+                cluster, interval=control_interval, stop=stop_control))
         t0 = time.perf_counter()
         for j in range(decisions):
+            if at_decision is not None and j == at_decision[0]:
+                hooked = await at_decision[1](cluster, t0)
             for s in range(shards):
                 for k in range(batch):
                     cid = cluster.client_for_shard(s, (j + k) % 4)
-                    await cluster.submit(cid, f"r-{s}-{j}-{k}")
-        done_at = await wait_committed(
-            {sh.shard_id: sh.apps for sh in cluster.shard_list}, requests,
-            t0, f"sharded {tag}: shards")
+                    rid = f"r-{s}-{j}-{k}"
+                    await cluster.submit(cid, rid)
+                    if control is not None:
+                        submitted.append(f"{cid}:{rid}")
+            if pace:
+                await asyncio.sleep(pace)
+        if control is None:
+            done_at = await wait_committed(
+                {sh.shard_id: sh.apps for sh in cluster.shard_list},
+                requests, t0, f"sharded {tag}: shards")
+        else:
+            done_at = await wait_delivered(cluster, submitted, t0,
+                                           f"sharded {tag}")
         elapsed = time.perf_counter() - t0
         cluster.check_invariants()
     finally:
+        stop_control.set()
+        if control is not None:
+            # the loop's own exception, if it raised, fails the cell here
+            control = await control
         await cluster.stop()
         await driver.stop()
     per_shard = {}
@@ -1038,10 +1104,14 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
             "decisions": len(sh.apps[0].ledger()),
             "ledger_digests": len(digests),
             "ledger_digest": sorted(digests)[0][:16],
-            "elapsed_s": round(done_at[sh.shard_id], 3),
-            "tx_per_s": round(requests / done_at[sh.shard_id], 1),
+            "views": sorted({a.consensus.controller.curr_view_number
+                             for a in sh.apps}),
         }
-    return {
+        if control is None:
+            per_shard[str(sh.shard_id)].update(
+                elapsed_s=round(done_at[sh.shard_id], 3),
+                tx_per_s=round(requests / done_at[sh.shard_id], 1))
+    out = {
         "shards": shards, "nodes_per_shard": n, "requests": shards * requests,
         "decisions": sum(v["decisions"] for v in per_shard.values()),
         "elapsed_s": round(elapsed, 3),
@@ -1049,7 +1119,51 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
         "per_shard": per_shard,
         "coalescer": cluster.coalescer.shard_snapshot(),
         "breaker": cluster.coalescer.fault_snapshot(),
+        "hold": cluster.coalescer.mesh_snapshot()["hold"],
+        **hooked,
     }
+    if control is not None:
+        out["control"] = control.snapshot()
+    return out
+
+
+async def wait_delivered(cluster, submitted: list, t0: float, what: str):
+    """Poll, awaiting so the cluster runs, until the front door's mux has
+    delivered every request id in ``submitted`` (``client:request``),
+    each once, across every shard, current or retired, and every replica
+    of each current shard has committed as many as its shard's longest
+    chain; returns the seconds from ``t0`` at which the mux had them all.
+    The cluster must collect its delivered entries: requests that are not
+    the cell's (a control loop's retune reconfigs, the reshard barriers)
+    are not counted."""
+    want, seen, scanned = set(submitted), {}, 0
+    deadline = time.perf_counter() + 600.0
+    while True:
+        cluster.poll()
+        entries = cluster.delivered_entries
+        for e in entries[scanned:]:
+            for rid in e.request_ids:
+                if rid in want:
+                    seen[rid] = seen.get(rid, 0) + 1
+        scanned = len(entries)
+        twice = sorted(r for r, c in seen.items() if c > 1)
+        if twice:
+            fail(f"{what}: the mux delivered {len(twice)} of the cell's "
+                 f"requests more than once, e.g. {twice[:3]}")
+        if len(seen) == len(want):
+            break
+        if time.perf_counter() > deadline:
+            fail(f"{what}: the mux delivered {len(seen)} of the cell's "
+                 f"{len(want)} requests")
+        await asyncio.sleep(0.02)
+    elapsed = time.perf_counter() - t0
+    while not all(committed(a) == committed(sh.probe_app())
+                  for sh in cluster.shard_list for a in sh.apps):
+        if time.perf_counter() > deadline:
+            fail(f"{what}: replicas of a shard stopped short of its "
+                 "longest chain")
+        await asyncio.sleep(0.02)
+    return elapsed
 
 
 def zero_launch_counters(engine) -> None:
@@ -1136,10 +1250,11 @@ def phase_sharded(wal_root, n=16, batch=500, pipeline=16):
     return {"f1": f1, "f": f}
 
 
-def busy_line(cells, comb_row):
-    """Device busy of the sharded cells: launches at each rung times the
-    comb kernel's ms at that rung from the kernels line, and the idle
-    share of the cell's elapsed time."""
+def busy_line(cells, comb_row, phase="sharded_busy"):
+    """Device busy of the comb kernel's cells (phases sharded and
+    verify_plane): launches at each rung times the comb kernel's ms at
+    that rung from the kernels line, and the idle share of the cell's
+    elapsed time."""
     out = {}
     for tag, cell in cells.items():
         busy = sum(k * comb_row["ms_by_rung"][r]
@@ -1148,8 +1263,189 @@ def busy_line(cells, comb_row):
                     "idle_pct": round(100.0 * (1.0 - busy / 1e3
                                                / cell["elapsed_s"]), 3),
                     "elapsed_s": cell["elapsed_s"]}
-    emit({"phase": "sharded_busy", "ok": True, "cells": out})
+    emit({"phase": phase, "ok": True, "cells": out})
     return out
+
+
+def plane_cell(engine, tag, hold, pace, control_interval=None, n=16,
+               shards=4, decisions=8, batch=500, pipeline=16,
+               wal_root=""):
+    """One paced cell of phase verify_plane (G0, G, K): cell F's
+    deployment through :func:`run_sharded`, its counters zeroed inside it
+    just before the cluster starts and read here just after it stops.
+    Fails unless every replica of each shard holds one ledger with every
+    request of the cell, the cell passes :func:`read_cell` for the comb
+    kernel, and the hold reached the live coalescer: without the control
+    loop exactly ``hold``, with a wave held when it is above 0; with the
+    loop, ``hold`` or the hold of a retune the loop executed (a reshard's
+    new replicas configure ``hold`` again)."""
+    run = asyncio.run(run_sharded(engine, shards, n, decisions, batch,
+                                  pipeline, wal_root, tag, hold=hold,
+                                  pace=pace,
+                                  control_interval=control_interval))
+    # with the control loop, wait_delivered held the mux to every request
+    want = decisions * batch
+    if control_interval is None and any(
+            sh["committed_min"] < want for sh in run["per_shard"].values()):
+        fail(f"verify_plane {tag}: a shard's replica committed fewer than "
+             f"{want}: {run['per_shard']}")
+    for sid, sh in run["per_shard"].items():
+        if sh["ledger_digests"] != 1:
+            fail(f"verify_plane {tag}: shard {sid}'s replicas hold "
+                 f"{sh['ledger_digests']} different ledgers")
+    run.update(read_cell(engine, "comb", "verify_plane", tag, run))
+    run.pop("coalescer")
+    held = run["hold"]["hold_s"]
+    if control_interval is None:
+        if held != hold:
+            fail(f"verify_plane {tag}: verify_flush_hold={hold} did not "
+                 f"reach the coalescer: {run['hold']}")
+        if hold and not run["hold"]["waves_held"]:
+            fail(f"verify_plane {tag}: a hold of {hold} s held no wave: "
+                 f"{run['hold']}")
+    else:
+        retuned = [e["knobs"]["verify_flush_hold"]
+                   for e in run["control"]["executed"]
+                   if e["action"] == "retune" and e["ok"]
+                   and "verify_flush_hold" in e["knobs"]]
+        if held not in [hold, *retuned]:
+            fail(f"verify_plane {tag}: the coalescer holds {held} s, not "
+                 f"the cell's {hold} s nor a retune's {retuned}")
+    return run
+
+
+def flip_cell(engine, tag, span, n=16, decisions=32, batch=500,
+              pipeline=16, mute_after=8, heartbeat_s=2.0, wal_root=""):
+    """Cells V and V0: a leader failure mid-burst in cell F1's deployment
+    (one shard of ``n``) through :func:`run_sharded`.  Once ``mute_after``
+    decision rounds have committed, the leader's egress is muted
+    (``AppShard.mute_leader``) until every other replica has installed a
+    new view with another leader, then unmuted, and the rest of the burst
+    commits in the new view.  The liveness timeouts are F1's but for the
+    detection ones (``leader_heartbeat_timeout = heartbeat_s``, the view
+    change's own timeout 10 x that), so the view changes inside the run.
+    ``span``: the coalescer's ``FLIP_WARM_SPAN`` from the mute on (0.25 s
+    in V; 0 in V0, the control, where a warm still flushes the pending
+    wave but leaves no windowless spell).  Fails unless the new view came
+    within 300 s, the coalescer ran its flip warm, the comb kernel
+    launched after the flip, every replica holds one ledger with every
+    request, and the cell passes :func:`read_cell` for the comb kernel."""
+    from smartbft_tpu_torch.crypto import cuda_comb as cc
+
+    async def flip(cluster, t0):
+        shard, co = cluster.shard(0), cluster.coalescer
+        await wait_committed({0: shard.apps}, mute_after * batch, t0,
+                             f"verify_plane {tag}: before the mute")
+        co.FLIP_WARM_SPAN = span
+        at_mute, rungs = cc.LAUNCHES.launches, dict(engine.rung_launches)
+        old = shard.mute_leader()
+        t_mute = time.perf_counter()
+        others = [a for a in shard.apps if a.id != old]
+        while True:
+            leads = {a.consensus.get_leader_id() for a in others}
+            if len(leads) == 1 and leads != {old} and 0 not in leads:
+                break
+            if time.perf_counter() - t_mute > 300.0:
+                fail(f"verify_plane {tag}: no new view 300 s after muting "
+                     f"leader {old} (replicas see leaders {sorted(leads)})")
+            await asyncio.sleep(0.01)
+        vc_s = time.perf_counter() - t_mute
+        # counted when the new view is seen, before the stop deposes every
+        # view (a depose runs the same warm path)
+        out = {
+            "muted_leader": old, "new_leader": leads.pop(),
+            "view_change_s": round(vc_s, 3), "flip_warm_span_s": span,
+            "comb_launches_at_mute": at_mute,
+            "comb_launches_at_flip": cc.LAUNCHES.launches,
+            "rung_launches_in_view_change": {
+                str(r): k - rungs.get(r, 0)
+                for r, k in sorted(engine.rung_launches.items())
+                if k > rungs.get(r, 0)},
+            "flip_warms_at_flip": co.flip_warms,
+        }
+        shard.unmute(old)
+        return out
+
+    run = asyncio.run(run_sharded(
+        engine, 1, n, decisions, batch, pipeline, wal_root, tag,
+        overrides={"leader_heartbeat_timeout": heartbeat_s,
+                   "view_change_timeout": 10 * heartbeat_s,
+                   "view_change_resend_interval": heartbeat_s},
+        at_decision=(mute_after, flip)))
+    sh = run["per_shard"]["0"]
+    if sh["committed_min"] < run["requests"]:
+        fail(f"verify_plane {tag}: a replica committed "
+             f"{sh['committed_min']} of {run['requests']}")
+    if sh["ledger_digests"] != 1:
+        fail(f"verify_plane {tag}: replicas hold {sh['ledger_digests']} "
+             "different ledgers")
+    if run["flip_warms_at_flip"] < 1:
+        fail(f"verify_plane {tag}: the view change ran no flip warm")
+    run.update(read_cell(engine, "comb", "verify_plane", tag, run))
+    run.pop("coalescer")
+    after = run["kernel_launches"]["comb"] - run["comb_launches_at_flip"]
+    if after < 1:
+        fail(f"verify_plane {tag}: the comb kernel never launched after "
+             "the flip")
+    run.update(
+        views=sh["views"], comb_launches_after_flip=after,
+        comb_launches_in_view_change=run["comb_launches_at_flip"]
+        - run["comb_launches_at_mute"],
+        flip_warms=run["breaker"]["flip_warms"],
+        flip_warm_bypasses=run["breaker"]["flip_warm_bypasses"])
+    return run
+
+
+def phase_verify_plane(wal_root, pace=0.03):
+    """Cells G0, G, V0, V and K on one fresh CUDA engine (the P-256 comb
+    kernel).  G0: cell F's deployment (4 shards of n = 16, 8 decisions
+    each), submission paced ``pace`` s between decision rounds, no hold —
+    the ungated control.  G: the same with ``verify_flush_hold = 0.25``
+    set in every replica's Configuration.  V: cell F1's deployment (1
+    shard of n = 16, 32 decisions) with its leader muted after 8
+    decisions until the view changes; V0: the same with a flip-warm span
+    of 0, the control that separates the warm's windowless spell from the
+    view change's own verifies.  K: G's cluster with the control loop
+    ticking every 0.25 s for the whole burst."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
+
+    engine = TorchVerifyEngine(device="cuda", scheme=p256)
+    g0 = plane_cell(engine, "g0", 0.0, pace, wal_root=wal_root)
+    g = plane_cell(engine, "g", 0.25, pace, wal_root=wal_root)
+    v0 = flip_cell(engine, "v0", 0.0, wal_root=wal_root)
+    v = flip_cell(engine, "v", 0.25, wal_root=wal_root)
+    k = plane_cell(engine, "k", 0.25, pace, control_interval=0.25,
+                   wal_root=wal_root)
+    ctl = k["control"]
+    emit({
+        "phase": "verify_plane", "ok": True,
+        "deployment": {"nodes_per_shard": 16, "request_batch_max_count": 500,
+                       "pipeline_depth": 16, "wal_group_commit": True,
+                       "shared_dedupe_coalescer": True, "window_s": 0.02,
+                       "pace_s": pace, "scheme": "p256"},
+        "g_vs_g0": {
+            key: {"g0": g0[key], "g": g[key]}
+            for key in ("tx_per_s", "elapsed_s", "launches_per_decision",
+                        "fill_pct", "rung_launches")},
+        "g_hold": g["hold"], "g0_hold": g0["hold"],
+        "v_flip": {tag: {key: cell[key] for key in (
+            "flip_warm_span_s", "view_change_s", "muted_leader",
+            "new_leader", "views", "flip_warms_at_flip", "flip_warms",
+            "flip_warm_bypasses", "comb_launches_at_mute",
+            "comb_launches_in_view_change", "rung_launches_in_view_change",
+            "comb_launches_after_flip", "tx_per_s", "elapsed_s")}
+            for tag, cell in (("v0", v0), ("v", v))},
+        "k_control": {"ticks": ctl["policy"]["counters"]["ticks"],
+                      "actions": ctl["executed"],
+                      "vetoes": {c: ctl["policy"]["counters"][c]
+                                 for c in ctl["policy"]["counters"]
+                                 if c.startswith("veto_")},
+                      "shards_after": len(k["per_shard"]),
+                      "tx_per_s": k["tx_per_s"], "hold": k["hold"]},
+        "g0": g0, "g": g, "v0": v0, "v": v, "k": k,
+    })
+    return {"g0": g0, "g": g, "v0": v0, "v": v, "k": k}
 
 
 def bls_args16(rec):
@@ -1222,8 +1518,9 @@ def phase_kernels(recs, cells, clock_hz, sms, sharded):
     the main rung and at 16384 (CUDA events), the plain version's time and
     the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
     ``recs``: the kernel phases' records by kernel name; ``cells``: the
-    e2e cells by kernel name; ``sharded``: the sharded cells by tag, whose
-    comb launches and rungs the comb kernel's row carries too."""
+    e2e cells by kernel name; ``sharded``: the cells of phases sharded and
+    verify_plane by tag, whose comb launches and rungs the comb kernel's
+    row carries too."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
@@ -1453,9 +1750,11 @@ def main() -> int:
                  **timed("e2e_ed25519", phase_e2e, wal_root, ed25519),
                  **timed("e2e_bls", phase_e2e_bls, wal_root)}
         sharded = timed("sharded", phase_sharded, wal_root)
+        plane = timed("verify_plane", phase_verify_plane, wal_root)
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
-                      sharded)
+                      {**sharded, **plane})
         busy_line(sharded, rows[0])
+        busy_line(plane, rows[0], "verify_plane_busy")
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

@@ -15,8 +15,9 @@ The crypto seam of the protocol core:
       P-256 or Ed25519; the pairing kernel for BLS12-381.
 * :class:`AsyncBatchCoalescer` — merges concurrent quorum checks (across
   sequences, replicas and view-change validations) into shared launches,
-  with dedupe, per-tag attribution, and the deadline / retry / breaker /
-  canary fault machinery.
+  with dedupe, per-tag attribution, the occupancy-aware flush hold, the
+  view-flip warm path, and the deadline / retry / breaker / canary fault
+  machinery.
 
 Wire format of a consenter signature (Signature.msg): canonical encoding of
 :class:`ConsenterSigMsg` binding the proposal digest and the auxiliary data.
@@ -245,6 +246,112 @@ class ShardAttribution:
 
 
 @dataclass
+class FlushHoldStats:
+    """Occupancy-aware flush-gating accounting.
+
+    Every decision the gate takes is exported (``mesh_snapshot``'s
+    ``hold`` block rides every bench row): how many waves were held, for
+    how long, how many items the holds actually gained (``depth_gain``
+    — the wave-deepening payoff), and the two bounded-latency outs —
+    holds that ran out the hard ``verify_flush_hold`` deadline and
+    flushes that skipped the hold because the breaker was open (host
+    fallback must never wait on device-occupancy predictions)."""
+
+    waves_held: int = 0
+    held_ms: float = 0.0
+    depth_gain_items: int = 0
+    deadline_expired: int = 0
+    breaker_bypass: int = 0
+
+    def snapshot(self, hold_s: float) -> dict:
+        return {
+            "hold_s": float(hold_s),
+            "waves_held": self.waves_held,
+            "held_ms": round(self.held_ms, 2),
+            "depth_gain_items": self.depth_gain_items,
+            "deadline_expired": self.deadline_expired,
+            "breaker_bypass": self.breaker_bypass,
+        }
+
+
+class TagRateTracker:
+    """Per-tag submit-cadence tracking: the occupancy signal behind
+    flush gating (a drain-rate EWMA pointed at ARRIVALS).
+
+    Each ``submit(tag=...)`` notes wall time; the inter-submit gap per
+    tag folds into an EWMA.  :meth:`any_imminent` answers the gate's one
+    question — does any recently-live tag plausibly deliver another wave
+    within the remaining hold budget?  A tag is *live* while the time
+    since its last submit is within ``slack`` expected gaps (cold tags
+    borrow the coalescer window as their gap estimate), and *imminent*
+    while its predicted next arrival fits in the remaining budget.
+    Untagged submissions track under ``None`` — single-group
+    deployments still deepen their waves."""
+
+    __slots__ = ("_last", "_ewma", "slack", "default_gap")
+
+    #: tags silent this long are evicted outright — far beyond any
+    #: plausible hold budget (sub-second), so eviction can never hide a
+    #: tag a live hold could still be waiting for.  Bounds both memory
+    #: and the any_imminent scan under shard churn (the autoscaler
+    #: retires shard ids over a long-lived process's life).
+    EVICT_AFTER = 60.0
+    #: dict size that triggers an eviction sweep in note() — sweeps are
+    #: O(tags) but amortized across at least this many submits
+    EVICT_SWEEP_AT = 128
+
+    def __init__(self, default_gap: float = 0.002, slack: float = 4.0):
+        self._last: dict = {}
+        self._ewma: dict = {}
+        self.slack = slack
+        self.default_gap = default_gap
+
+    def note(self, tag, now: float) -> None:
+        prev = self._last.get(tag)
+        if prev is not None:
+            gap = max(now - prev, 1e-6)
+            # sub-window gaps are the SAME logical wave (a shard's n
+            # replicas submit the same quorum check within microseconds)
+            # — folding them in would teach the tracker a microsecond
+            # "cadence" and make every tag look quiet the moment its
+            # burst ends; only inter-wave gaps carry cadence signal
+            if gap >= self.default_gap:
+                old = self._ewma.get(tag)
+                self._ewma[tag] = gap if old is None \
+                    else 0.5 * old + 0.5 * gap
+        elif len(self._last) >= self.EVICT_SWEEP_AT:
+            # a NEW tag on a full tracker: sweep out long-dead tags so
+            # retired shards can never grow the dict without bound
+            dead = [t for t, ts in self._last.items()
+                    if now - ts > self.EVICT_AFTER]
+            for t in dead:
+                del self._last[t]
+                self._ewma.pop(t, None)
+        self._last[tag] = now
+
+    def any_imminent(self, now: float, remaining: float,
+                     budget: Optional[float] = None) -> bool:
+        if budget is None:
+            budget = self.slack * self.default_gap
+        for tag, last in self._last.items():
+            gap = self._ewma.get(tag)
+            if gap is None:
+                # cold tag (one submit seen, no cadence yet): stay
+                # optimistic within the hold budget — the hard deadline
+                # bounds the cost, and a second wave teaches the cadence
+                if now - last <= budget:
+                    return True
+                continue
+            if now - last > self.slack * gap:
+                continue  # tag went quiet — stop predicting it
+            # overdue counts as "any moment now"; otherwise the predicted
+            # arrival must fit inside what is left of the hold budget
+            if last + gap <= now + remaining:
+                return True
+        return False
+
+
+@dataclass
 class VerifyFaultStats:
     """Plain counters for the fault machinery — introspectable without a
     metrics provider; benches export them in every JSON row."""
@@ -427,7 +534,8 @@ class AsyncBatchCoalescer:
     def __init__(self, engine, window: float = 0.002, max_batch: int = 2048,
                  dedupe: bool = False,
                  policy: Optional[VerifyFaultPolicy] = None,
-                 fallback_engine=None, metrics=None):
+                 fallback_engine=None, metrics=None,
+                 hold: Optional[float] = None):
         """``dedupe``: verify each DISTINCT item once per flush and fan the
         verdict out to every submitter.  Verification is a pure function of
         (message, signature, key), so this is sound; it pays off when many
@@ -451,7 +559,17 @@ class AsyncBatchCoalescer:
         reaches the submitters as it was raised.
         ``metrics``: an optional crypto metrics bundle counting launch
         failures/timeouts/retries and breaker transitions.
-"""
+
+        ``hold``: occupancy-aware flush gating (the
+        ``Configuration.verify_flush_hold`` knob).  When > 0, a flush
+        whose wave is below a pad-ladder rung briefly HOLDS — up to
+        ``hold`` wall-clock seconds, the hard latency bound — while the
+        per-tag submit-rate tracker predicts more waves inbound, so one
+        deeper launch replaces several shallow ones (a launch has a fixed
+        overhead).  The hold never engages when the breaker is open (host
+        fallback must not wait), never past ``max_batch``, and flushes the
+        moment the wave lands exactly on a rung (zero pad waste beats more
+        depth).  None/0 keeps the eager-window contract."""
         self.engine = engine
         self.window = window
         self.max_batch = max_batch
@@ -466,10 +584,19 @@ class AsyncBatchCoalescer:
             metrics.breaker_state.set(0.0)  # healthy until proven otherwise
         self.fault_stats = VerifyFaultStats()
         self.shard_stats = ShardAttribution()
+        #: occupancy-aware flush gating: hold budget seconds (0 = eager
+        #: flushing), per-tag arrival tracker, and the exported decision
+        #: accounting.  A constructor-supplied hold is EXPLICIT like a
+        #: constructor policy (configure_hold never overrides it);
+        #: config-wired holds stay re-wirable.
+        self.hold = float(hold) if hold else 0.0
+        self._hold_explicit = hold is not None
+        self.hold_stats = FlushHoldStats()
+        self._tag_rates = TagRateTracker(default_gap=max(window, 0.001))
         self.mesh_configured = 0   # Configuration.verify_mesh_devices wired
         self.mesh_downgrades = 0   # loud unbuildable-mesh downgrades
         #: flight recorder (obs.TraceRecorder; nop singleton when tracing
-        #: is off) — verify enqueue/launch spans + breaker
+        #: is off) — verify enqueue/hold/launch spans + breaker
         #: transitions, correlated by a per-coalescer launch id.  Shared
         #: like the breaker: ONE recorder serves every colocated shard.
         from ..obs.recorder import NOP_RECORDER
@@ -488,6 +615,16 @@ class AsyncBatchCoalescer:
         #: a known-well-formed item from the last wave, re-verified by the
         #: breaker probe as the device-health canary
         self._canary: Optional[tuple] = None
+        #: flip-warm mode: until this wall-clock instant the plane flushes
+        #: EAGERLY — no coalescing window, no occupancy hold.  Armed by
+        #: note_view_flip when a view change installs a new view: the
+        #: device idled through the depose, and the flip's first
+        #: deep-window waves must launch at once so the stalled backlog
+        #: lands on a warm plane instead of re-paying the batching latency
+        #: it was tuned for in steady state.
+        self._warm_until = 0.0
+        self.flip_warms = 0
+        self.flip_warm_bypasses = 0
 
     # -- late wiring ---------------------------------------------------------
 
@@ -520,6 +657,66 @@ class AsyncBatchCoalescer:
 
         self.recorder = recorder if recorder is not None else NOP_RECORDER
 
+    def configure_hold(self, hold: Optional[float],
+                       explicit: bool = False) -> None:
+        """Late flush-gating wiring (``Consensus._wire_verify_plane``
+        applies ``Configuration.verify_flush_hold`` here at start and on
+        every reconfig).  Same precedence contract as :meth:`configure`:
+        a constructor-supplied hold is explicit and never overridden; a
+        defaulted or previously config-wired one IS replaced."""
+        if hold is None:
+            return
+        if explicit or not self._hold_explicit:
+            self.hold = max(0.0, float(hold))
+            self._hold_explicit = self._hold_explicit or explicit
+
+    #: how long flip-warm mode lasts (wall seconds): long enough for the
+    #: new view's first deep windows to stage and launch their quorum
+    #: waves, short enough that steady-state coalescing resumes within
+    #: the same failover transient
+    FLIP_WARM_SPAN = 0.25
+
+    def note_view_flip(self, span: Optional[float] = None) -> None:
+        """A view change just installed a new view: flush any pending
+        wave immediately and run windowless/holdless for ``span``
+        seconds.  Safe from any caller on the event loop; a caller
+        without a running loop (unit code) just arms the mode."""
+        self._warm_until = time.monotonic() + (
+            span if span is not None else self.FLIP_WARM_SPAN
+        )
+        self.flip_warms += 1
+        rec = self.recorder
+        if rec.enabled:
+            rec.record("verify.flip_warm", extra={"pending": len(self._pending)})
+        if self._pending and not self._launch_inflight:
+            # flush NOW even when a windowed flush is already parked in
+            # its sleep: the immediate task swaps the batch out and the
+            # stale sleeper later wakes to an empty (or fresher) batch —
+            # exactly the race _flush_after is already written to absorb.
+            # Probe for the loop BEFORE building the coroutine: a no-loop
+            # caller just arms the mode (the next submit flushes eagerly),
+            # and an abandoned coroutine would warn "never awaited".
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                return
+            create_logged_task(
+                self._flush_after(0.0), name="coalescer-flush-flip"
+            )
+            self._flush_scheduled = True
+
+    def note_view_depose(self, span: Optional[float] = None) -> None:
+        """The current view is being torn down for a view change: same
+        eager-flush transient as the flip — in-window waves already
+        handed to the plane launch NOW instead of idling in the
+        coalescing window/hold while the view-change sub-protocol runs,
+        so the plane stays busy through the depose and the flip lands
+        warm."""
+        self.note_view_flip(span)
+
+    def _flip_warm(self) -> bool:
+        return time.monotonic() < self._warm_until
+
     @property
     def breaker_open(self) -> bool:
         return self._breaker_is_open
@@ -541,6 +738,10 @@ class AsyncBatchCoalescer:
             "probe_attempts": s.probe_attempts,
             "probe_successes": s.probe_successes,
             "abandoned_late_arrivals": s.abandoned_late_arrivals,
+            # view-flip warm transients (eager windowless flushing) and
+            # the occupancy holds they bypassed
+            "flip_warms": self.flip_warms,
+            "flip_warm_bypasses": self.flip_warm_bypasses,
         }
 
     def shard_snapshot(self) -> dict:
@@ -551,10 +752,13 @@ class AsyncBatchCoalescer:
         """Which verify plane ran, under the JAX package's keys: the port
         has no mesh engine yet, so always one device, with the configured
         width and the counted downgrades beside it, so a run configured for
-        a mesh is never mistaken for one that had it."""
+        a mesh is never mistaken for one that had it.  ``hold`` is the
+        occupancy-aware flush gate's accounting: every hold it took, its
+        cost, and its depth payoff."""
         return {"enabled": False, "devices": 1,
                 "configured_devices": self.mesh_configured,
-                "downgrades": self.mesh_downgrades, "topology": "1d"}
+                "downgrades": self.mesh_downgrades, "topology": "1d",
+                "hold": self.hold_stats.snapshot(self.hold)}
 
     async def submit(self, items, tag=None) -> list[bool]:
         """``tag``: opaque attribution label (the submitter's shard id in
@@ -568,6 +772,7 @@ class AsyncBatchCoalescer:
         if rec.enabled:
             rec.record("verify.enqueue",
                        extra={"items": len(items), "tag": str(tag)})
+        self._tag_rates.note(tag, time.monotonic())
         async with self._lock:
             start = len(self._pending)
             self._pending.extend(items)
@@ -589,14 +794,83 @@ class AsyncBatchCoalescer:
                 self._flush_scheduled = True
             elif not self._flush_scheduled:
                 self._flush_scheduled = True
+                # flip-warm mode: the failover transient flushes eagerly
+                # (no coalescing window) so the new view's first waves
+                # launch at once
+                delay = 0.0 if self._flip_warm() else self.window
                 create_logged_task(
-                    self._flush_after(self.window), name="coalescer-flush"
+                    self._flush_after(delay), name="coalescer-flush"
                 )
         return await fut
+
+    def _rung_exact(self, n: int) -> bool:
+        """A wave sitting exactly on a pad-ladder rung has zero pad
+        waste — holding it can only trade guaranteed-perfect fill for
+        speculative depth, so the gate flushes it immediately."""
+        sizes = getattr(self.engine, "pad_sizes", None)
+        return bool(sizes) and n in sizes
+
+    async def _maybe_hold(self) -> None:
+        """Occupancy-aware flush gating: briefly hold this flush while
+        the per-tag arrival tracker predicts more waves inbound, bounded
+        by the hard ``hold`` deadline.  See the constructor docstring
+        for the never-hold conditions (breaker open, full batch,
+        rung-exact wave)."""
+        budget = self.hold
+        if budget <= 0.0:
+            return
+        if self._flip_warm():
+            # the failover transient must not trade latency for depth
+            self.flip_warm_bypasses += 1
+            return
+        start = time.monotonic()
+        start_depth: Optional[int] = None
+        quantum = max(min(self.window, budget / 4.0), 0.001)
+        expired = False
+        while True:
+            now = time.monotonic()
+            held = now - start
+            async with self._lock:
+                if self._launch_inflight or not self._pending:
+                    break  # another flush task took the batch
+                n = len(self._pending)
+                if self._breaker_is_open:
+                    if start_depth is None:
+                        self.hold_stats.breaker_bypass += 1
+                    break  # host fallback must not wait on predictions
+                if n >= self.max_batch or self._rung_exact(n):
+                    break
+                if held >= budget:
+                    expired = True
+                    break
+                if not self._tag_rates.any_imminent(now, budget - held,
+                                                    budget):
+                    break
+                if start_depth is None:
+                    start_depth = n
+            await asyncio.sleep(quantum)
+        if start_depth is not None:
+            held_s = time.monotonic() - start
+            self.hold_stats.waves_held += 1
+            self.hold_stats.held_ms += 1e3 * held_s
+            async with self._lock:
+                gain = max(len(self._pending) - start_depth, 0)
+            self.hold_stats.depth_gain_items += gain
+            if expired:
+                self.hold_stats.deadline_expired += 1
+            if self.metrics is not None \
+                    and hasattr(self.metrics, "count_waves_held"):
+                self.metrics.count_waves_held.add(1)
+                self.metrics.count_hold_depth_gain.add(gain)
+            rec = self.recorder
+            if rec.enabled:
+                rec.record("verify.hold", dur=held_s,
+                           extra={"depth_gain": gain, "expired": expired})
 
     async def _flush_after(self, delay: float) -> None:
         if delay:
             await asyncio.sleep(delay)
+        await self._maybe_hold()
         # swap under the lock, verify outside it — submissions arriving
         # during the kernel launch accumulate into the NEXT batch
         async with self._lock:
@@ -1094,16 +1368,24 @@ class CryptoProvider:
             co.mesh_downgrades,
         )
 
-    def configure_flush_hold(self, hold: Optional[float]) -> None:
-        """The ``Configuration.verify_flush_hold`` knob.  The occupancy-
-        aware flush hold is not ported yet (it comes with the view-flip
-        warm path), so a hold above 0 raises, and
-        ``Consensus._wire_verify_plane`` logs the error at warn: a run that
-        asked for a hold says in its log that it flushed without one."""
-        if hold is not None and hold > 0:
-            raise NotImplementedError(
-                f"verify_flush_hold={hold}: the occupancy-aware flush hold "
-                "is not ported yet; waves flush without a hold")
+    def configure_flush_hold(self, hold: Optional[float],
+                             explicit: bool = False) -> None:
+        """Late occupancy-gating wiring: apply the
+        ``Configuration.verify_flush_hold`` knob to the (possibly
+        shared) coalescer.  Same precedence as the fault policy — an
+        explicitly constructed hold wins over config-wired values."""
+        self._coalescer.configure_hold(hold, explicit=explicit)
+
+    def note_view_flip(self) -> None:
+        """Controller seam: a view change installed a new view — run the
+        (possibly shared) coalescer flip-warm so the new view's first
+        quorum waves launch without coalescing latency."""
+        self._coalescer.note_view_flip()
+
+    def note_view_depose(self) -> None:
+        """View seam: the view is aborting for a view change — flush its
+        in-flight waves eagerly (see the coalescer's note_view_depose)."""
+        self._coalescer.note_view_depose()
 
     def configure_misbehavior(self, table) -> None:
         """Late misbehavior wiring (Consensus._wire_verify_plane): every

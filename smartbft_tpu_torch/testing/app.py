@@ -281,6 +281,14 @@ class App(Application, Assembler, Comm, Signer, Verifier, RequestInspector,
             # MisbehaviorTable to the provider so failed verify verdicts
             # are charged to the signer instead of the aggregate counter
             self.configure_misbehavior = crypto.configure_misbehavior
+        if crypto is not None and hasattr(crypto, "note_view_flip"):
+            # view-flip warm seams: the Controller (a new view installed)
+            # and the windowed view (its depose) find them on the App,
+            # their verifier, and reach the shared coalescer through the
+            # provider (the JAX package's App forwards neither, so there
+            # they find nothing)
+            self.note_view_flip = crypto.note_view_flip
+            self.note_view_depose = crypto.note_view_depose
 
     # ------------------------------------------------------------------ app
 

@@ -239,11 +239,17 @@ class CoalescedTrivialCrypto:
             policy=policy, fallback_engine=fallback_engine, metrics=metrics
         )
 
-    def configure_flush_hold(self, hold=None) -> None:
-        """The ``verify_flush_hold`` knob, as the real CryptoProvider
-        takes it: the occupancy-aware flush hold is not ported yet, so a
-        hold above 0 raises and ``Consensus._wire_verify_plane`` logs it."""
-        if hold is not None and hold > 0:
-            raise NotImplementedError(
-                f"verify_flush_hold={hold}: the occupancy-aware flush hold "
-                "is not ported yet; waves flush without a hold")
+    def configure_flush_hold(self, hold=None, explicit: bool = False) -> None:
+        """Forward the ``verify_flush_hold`` knob to the shared coalescer
+        (same explicit-wins precedence as the real CryptoProvider), so
+        trivial clusters exercise occupancy gating through the
+        Configuration path too."""
+        self._coalescer.configure_hold(hold, explicit=explicit)
+
+    def note_view_flip(self) -> None:
+        """Forward the Controller's view-flip warmth hint to the shared
+        coalescer, like the real CryptoProvider."""
+        self._coalescer.note_view_flip()
+
+    def note_view_depose(self) -> None:
+        self._coalescer.note_view_depose()

@@ -56,6 +56,13 @@ def test_scan_covers_the_sharded_slice():
             "testing/toy_scheme.py", "testing/sharded.py"} <= have
 
 
+def test_scan_covers_the_control_plane():
+    """The control plane, under the JAX package's names."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"control/__init__.py", "control/loop.py",
+            "control/policy.py"} <= have
+
+
 def test_importing_the_port_loads_no_jax():
     import subprocess
     import sys

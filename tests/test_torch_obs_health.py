@@ -23,7 +23,7 @@ from smartbft_tpu_torch.obs import health as t_health
 from smartbft_tpu_torch.obs import recorder as t_recorder
 from smartbft_tpu_torch.obs import slo as t_slo
 from smartbft_tpu_torch.obs import vcphases as t_vcphases
-from test_torch_shard import reference_cases, run_case
+from torch_reference import reference_tests
 
 BOTH = (("jax", j_slo, j_health, j_recorder, j_vcphases),
         ("torch", t_slo, t_health, t_recorder, t_vcphases))
@@ -281,21 +281,18 @@ def test_critical_path_block_matches(seed):
 
 # -------------------------------------------- the reference's case matrices
 
-@pytest.mark.parametrize(
-    "case", reference_cases("test_health_slo.py")
-    + reference_cases("test_critpath.py"))
-def test_reference_case(case, tmp_path):
-    run_case(case, tmp_path)
+globals().update(reference_tests("test_health_slo.py"))
+globals().update(reference_tests("test_critpath.py"))
 
 
 def test_reference_cases_leave_out_only_unported_needs():
     """Left out: the chaos-harness cases of test_health_slo.py (they need
-    ``testing.chaos`` and ``obs.report``) and test_critpath.py's
-    single-node case (it builds its cluster with another test file's
-    helpers); everything else runs on the port."""
-    ids = {p.id for p in reference_cases("test_health_slo.py")}
+    ``testing.chaos`` and ``obs.report``); everything else runs on the
+    port, test_critpath.py's single-node case on the port-compiled copy of
+    the test file whose helpers it borrows."""
+    ids = reference_tests("test_health_slo.py")
     assert len(ids) == 16 - 2
-    assert "test_sharded_cluster_health_surface" in ids
-    ids = {p.id for p in reference_cases("test_critpath.py")}
-    assert len(ids) == 9 - 1
-    assert "test_live_cluster_decomposes_every_request" in ids
+    assert "test_health_slo__test_sharded_cluster_health_surface" in ids
+    ids = reference_tests("test_critpath.py")
+    assert len(ids) == 9
+    assert "test_critpath__test_live_cluster_decomposes_every_request" in ids

@@ -355,10 +355,14 @@ def test_a_verify_mesh_wider_than_the_host_is_a_counted_downgrade(caplog):
 
 
 def test_a_verify_flush_hold_is_logged_not_dropped():
-    """verify_flush_hold=0.05: the port has no flush hold yet, so its
-    replica's log says the knob was not applied; 0 needs nothing."""
-    app, _ = _wired_replica("smartbft_tpu_torch", verify_flush_hold=0.05)
-    assert app.logger.contains("verify flush-hold wiring failed")
-    assert app.logger.contains("flush hold is not ported")
-    app, _ = _wired_replica("smartbft_tpu_torch", verify_flush_hold=0.0)
-    assert not app.logger.contains("flush-hold")
+    """verify_flush_hold=0.05 reaches the replica's coalescer through its
+    Configuration, with no wiring warning in its log, in the port as in
+    the JAX package; 0 leaves the coalescer without a hold."""
+    for pkg in ("smartbft_tpu", "smartbft_tpu_torch"):
+        app, provider = _wired_replica(pkg, verify_flush_hold=0.05)
+        assert provider.coalescer.hold == 0.05
+        assert provider.coalescer.mesh_snapshot()["hold"]["hold_s"] == 0.05
+        assert not app.logger.contains("flush-hold")
+        app, provider = _wired_replica(pkg, verify_flush_hold=0.0)
+        assert provider.coalescer.hold == 0.0
+        assert not app.logger.contains("flush-hold")

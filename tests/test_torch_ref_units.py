@@ -1,0 +1,23 @@
+"""The reference's unit case matrices against the port: the four
+``*_units`` files (core, controller, view, view changer), the WAL and its
+group commit, the codec, the in-process network, the Prometheus lint and
+RTT-derived forwarding, compiled against ``smartbft_tpu_torch`` by
+:mod:`torch_reference` and collected here as items of their own
+(``<file stem>__<case>``), under an exact count guard.  Left out: the
+socket-transport RTT case (``net.transport`` is not ported)."""
+
+from torch_reference import check_matrices, reference_tests
+
+CASES = {"test_core_units.py": 22, "test_controller_units.py": 25,
+         "test_view_units.py": 26, "test_viewchanger_units.py": 27,
+         "test_wal.py": 14, "test_wal_group_commit.py": 13,
+         "test_codec.py": 9, "test_network.py": 11, "test_promlint.py": 5,
+         "test_rtt_forward.py": 5}
+LEFT_OUT: dict = {"test_rtt_forward.py": ["test_transport_rtt_ewma_and_envelope"]}
+
+for _file in CASES:
+    globals().update(reference_tests(_file))
+
+
+def test_reference_matrices_are_whole_and_ported():
+    check_matrices(CASES, LEFT_OUT)

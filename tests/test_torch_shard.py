@@ -4,23 +4,13 @@ the delivery mux's stream and violations, epoch-journal recovery across
 the two packages (torn tails included), the barrier payload bytes and the
 autoscaler's decisions.  Then the reference's own case matrices
 (``tests/test_sharded.py`` router / mux cases and ``tests/test_reshard.py``
-up to its live integration cases) run against the port.
-
-:func:`reference_cases` is how a JAX test file's cases run against the
-port unchanged: its source with every ``smartbft_tpu`` import pointed at
-``smartbft_tpu_torch``, minus the cases that need a module the port does
-not have yet (``testing.chaos``, ``obs.report``) or another test file's
-helpers, and minus those marked slow.
+up to its live integration cases) run against the port, compiled by
+:mod:`torch_reference` and collected as items of their own
+(``<file stem>__<case>``).
 """
 
-import ast
-import importlib.util
-import inspect
 import json
-import pathlib
 import random
-import re
-import types
 
 import pytest
 
@@ -34,61 +24,7 @@ from smartbft_tpu_torch.shard import epoch as t_epoch
 from smartbft_tpu_torch.shard import mux as t_mux
 from smartbft_tpu_torch.shard import router as t_router
 from smartbft_tpu_torch.testing import app as t_app
-
-TESTS = pathlib.Path(__file__).resolve().parent
-
-
-def _port_has(module: str) -> bool:
-    try:
-        return importlib.util.find_spec(module) is not None
-    except ModuleNotFoundError:
-        return False
-
-
-def reference_cases(fname: str, first: int = 1, last: int = 10 ** 9):
-    """The test functions of ``tests/<fname>`` defined on lines
-    ``first..last``, compiled against the port, as pytest params (id =
-    the case name).  A case is left out when it is marked slow, names a
-    top-level import the port lacks, or imports (inside its body) a
-    module the port lacks or another test file."""
-    path = TESTS / fname
-    src = re.sub(r"\bsmartbft_tpu\b", "smartbft_tpu_torch", path.read_text())
-    tree = ast.parse(src, filename=str(path))
-    missing: set = set()
-    body = []
-    for node in tree.body:
-        if isinstance(node, ast.ImportFrom) and node.level == 0 \
-                and node.module.startswith("smartbft_tpu_torch") \
-                and not _port_has(node.module):
-            missing.update(a.asname or a.name for a in node.names)
-            continue
-        body.append(node)
-    tree.body = body
-    mod = types.ModuleType(f"ported_{path.stem}")
-    mod.__file__ = str(path)
-    exec(compile(tree, str(path), "exec"), mod.__dict__)
-    cases = []
-    for node in tree.body:
-        if not isinstance(node, ast.FunctionDef) \
-                or not node.name.startswith("test_") \
-                or not first <= node.lineno <= last:
-            continue
-        fn = getattr(mod, node.name)
-        names = {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
-        inner = [n.module for n in ast.walk(node)
-                 if isinstance(n, ast.ImportFrom) and n.module]
-        slow = any(m.name == "slow" for m in getattr(fn, "pytestmark", []))
-        if slow or names & missing or any(
-                m.startswith("tests") or not _port_has(m) for m in inner):
-            continue
-        cases.append(pytest.param(fn, id=node.name))
-    return cases
-
-
-def run_case(fn, tmp_path):
-    """Call a reference case with the one fixture those files use."""
-    params = inspect.signature(fn).parameters
-    fn(**({"tmp_path": tmp_path} if "tmp_path" in params else {}))
+from torch_reference import reference_tests
 
 
 # ---------------------------------------------------------------- router
@@ -318,24 +254,20 @@ def test_autoscaler_decisions_match(seed):
 
 # -------------------------------------------- the reference's case matrices
 
-@pytest.mark.parametrize(
-    "case", reference_cases("test_sharded.py", 41, 221)
-    + reference_cases("test_reshard.py", 63, 750))
-def test_reference_case(case, tmp_path):
-    run_case(case, tmp_path)
+globals().update(reference_tests("test_sharded.py", 41, 221))
+globals().update(reference_tests("test_reshard.py", 63, 750))
 
 
 def test_reference_cases_cover_the_matrices():
     """Every case of the two ranges runs on the port: none of them needs
     a module it does not have yet (the live reshard cases after line 750
     need ``testing.chaos``)."""
-    cases = reference_cases("test_sharded.py", 41, 221) \
-        + reference_cases("test_reshard.py", 63, 750)
-    ids = {p.id for p in cases}
-    assert len(ids) == 9 + 30
+    cases = reference_tests("test_sharded.py", 41, 221) \
+        | reference_tests("test_reshard.py", 63, 750)
+    assert len(cases) == 9 + 30
     # compiled against the port, not the JAX package
-    for p in cases:
-        assert p.values[0].__globals__["ShardRouter"].__module__ == \
+    for fn in cases.values():
+        assert fn.__globals__["ShardRouter"].__module__ == \
             "smartbft_tpu_torch.shard.router"
-    assert "test_router_determinism_across_processes" in ids
-    assert "test_run_autoscaler_loop_over_stub_set" in ids
+    assert "test_reshard__test_router_determinism_across_processes" in cases
+    assert "test_reshard__test_run_autoscaler_loop_over_stub_set" in cases

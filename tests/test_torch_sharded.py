@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_shard import reference_cases, run_case
+from torch_reference import reference_tests
 
 # small plain-torch tensors gain nothing from intra-op threads, and the
 # suite runs in parallel worker processes
@@ -376,18 +376,16 @@ def test_toy_mode_defaults_to_a_host_engine(tmp_path):
 
 # ------------------------------------------------ the reference's clusters
 
-@pytest.mark.parametrize("case", reference_cases("test_sharded.py", 222))
-def test_reference_case(case, tmp_path):
-    run_case(case, tmp_path)
+globals().update(reference_tests("test_sharded.py", 222))
 
 
 def test_reference_cluster_cases_are_all_there():
     """Every cluster case of the reference file from line 222 runs on the
     port but the chaos soak (marked slow, and ``testing.chaos`` is not
     ported): a renamed port module or a new unported import in a case
-    would otherwise drop it from the parametrisation without a trace."""
-    cases = reference_cases("test_sharded.py", 222)
-    assert [p.id for p in cases] == [
+    would otherwise drop it from the collection without a trace."""
+    cases = reference_tests("test_sharded.py", 222)
+    assert [name.split("__")[1] for name in cases] == [
         "test_group_namespacing_no_inbox_collisions",
         "test_shard_scoped_mute_and_partition",
         "test_two_shards_commit_combined_stream",
@@ -398,6 +396,6 @@ def test_reference_cluster_cases_are_all_there():
         "test_tpu_counters_aggregate_rolls_up_per_shard_providers",
         "test_breaker_cycle_affects_all_shards_coherently",
     ]  # left out: test_sharded_chaos_soak
-    for p in cases:
-        assert p.values[0].__globals__["ShardedCluster"].__module__ == \
+    for fn in cases.values():
+        assert fn.__globals__["ShardedCluster"].__module__ == \
             "smartbft_tpu_torch.testing.sharded"
