@@ -115,26 +115,65 @@ Phases, one JSON line each; any failure exits non-zero:
                 ``read_cell`` for the comb kernel (breaker 0, only the
                 comb kernel, lanes cover the signatures) and the mux's
                 checks; ``verify_plane_busy`` follows the kernels line.
-10. kernels   — one line with the five kernels: launches in their cell,
+10. open_loop — open-loop load through the same front door: the JAX
+                package's open-loop bench deployment (2 shards of n=4,
+                depth 2, pool 2400, admission high water 0.8, batch cap
+                128, adaptive proposing, group-commit WAL) on a fresh
+                engine with real P-256 votes, pumped by
+                ``testing.load.run_open_loop`` on the wall clock (Poisson
+                arrivals over 512 Zipf(1.1) clients for 8 s, then a 3 s
+                drain).  Cell O1 offers 400 requests a second with the
+                flight recorders on, and ``obs.report`` renders their
+                dumps into per-span-type percentile rows
+                (``open_loop_trace``); cell O2 offers 1600, untraced.
+                Each prints offered, acked, shed (admission, timeout),
+                failed, goodput in the 8 s window, commit p50/p95/p99,
+                peak pool occupancy, the hot client's share, launches a
+                decision, rungs and fill, and whether the bench's SLO
+                held (goodput >= 90 % of offered, shed < 1 %; reported,
+                not gated).  A cell fails if a submit failed with
+                anything but a shed, the mux did not deliver every acked
+                request once, or a shard's replicas hold two ledgers.
+11. byzantine — the chaos harness's Byzantine round on real P-256 votes:
+                n=4 (one actor), depth 1, rotation, 18 requests, shun
+                threshold 3, as ``testing.chaos.byzantine_round`` sets
+                it, built as cell A's cluster is (``Keyring`` ->
+                ``P256CryptoProvider`` per replica over one shared dedupe
+                coalescer and a fresh engine -> ``testing.App``, wall
+                clock) with ``testing.byzantine.ByzantineActor`` arming
+                the replica the round arms.  Cell Y1: replica 4 forges
+                votes; the chaos invariants (fork-free, exactly once,
+                ``forger_shunned_and_shed``) must hold, the forger must be
+                shunned at every honest replica, and every signature in
+                the kernel's lanes must be one the engine was handed and
+                accepted.  Cell Y2: the initial leader equivocates;
+                ``no_equivocation_commit`` must hold and the honest ledger
+                must go on in a later view.  Both print the actor's
+                counters, the per-replica attribution, sheds and shuns,
+                the engine's tally by signer, leaders and views.  Every
+                cell of phases 10 and 11 passes ``read_cell`` for the
+                comb kernel; ``open_loop_busy`` and ``byzantine_busy``
+                follow the kernels line.
+12. kernels   — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
                 also carries its launches, lanes and rungs in cells F1,
-                F, G0, G, V and K (``cells``), and is timed at their
-                rungs too.
-11. generic_groups — the generic P-256 kernel at each group size (threads
+                F, G0, G, V0, V, K, O1, O2, Y1 and Y2 (``cells``), and is
+                timed at their rungs too.
+13. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-12. ed_generic_groups — the same for the generic Ed25519 kernel: the
+14. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-13. comb_groups — the same for the P-256 comb kernel: the library (8
+15. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-14. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+16. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-15. bls_groups — the same for the BLS12-381 pairing kernel: the library
+17. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -999,6 +1038,22 @@ def phase_e2e_bls(wal_root, n=64, batch=500, pipeline=16, decisions=32):
     return {"bls": run}
 
 
+def warm_cluster(engine, cluster, what: str) -> None:
+    """A front-door cluster's set-up on ``engine``: it must have taken the
+    engine, every shard's ring of keys is registered and every pad rung
+    launched once, so no cell's window carries a table build."""
+    from smartbft_tpu_torch.crypto import p256
+
+    if cluster.engine is not engine:
+        fail(f"{what}: the cluster did not take the CUDA engine")
+    for ring in cluster._rings.values():
+        engine.prewarm_keys(ring[1].public_keys.values())
+    ring = cluster._rings[0][1]
+    engine.prewarm_shapes(p256.make_item(
+        b"warm", p256.sign_raw(ring.private_key, b"warm"),
+        ring.public_keys[1]))
+
+
 async def run_sharded(engine, shards: int, n: int, decisions: int,
                       batch: int, pipeline: int, wal_root: str, tag: str,
                       hold: float = 0.0, pace: float = 0.0,
@@ -1029,7 +1084,6 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     once ``j`` decision rounds are submitted and merges the dict it
     returns into the result."""
     from smartbft_tpu_torch.control import run_control_loop
-    from smartbft_tpu_torch.crypto import p256
     from smartbft_tpu_torch.testing.sharded import (
         ShardedCluster,
         sharded_config,
@@ -1048,14 +1102,7 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
         os.path.join(wal_root, tag), shards=shards, n=n, depth=pipeline,
         crypto="p256", engine=engine, window=0.02, config_fn=cfg, seed=13,
         collect_entries=control_interval is not None)
-    if cluster.engine is not engine:
-        fail(f"sharded {tag}: the cluster did not take the CUDA engine")
-    for ring in cluster._rings.values():
-        engine.prewarm_keys(ring[1].public_keys.values())
-    ring = cluster._rings[0][1]
-    engine.prewarm_shapes(p256.make_item(
-        b"warm", p256.sign_raw(ring.private_key, b"warm"),
-        ring.public_keys[1]))
+    warm_cluster(engine, cluster, f"sharded {tag}")
     for s in range(shards):
         cluster.client_for_shard(s, 3)
     zero_launch_counters(engine)
@@ -1157,13 +1204,25 @@ async def wait_delivered(cluster, submitted: list, t0: float, what: str):
                  f"{len(want)} requests")
         await asyncio.sleep(0.02)
     elapsed = time.perf_counter() - t0
-    while not all(committed(a) == committed(sh.probe_app())
-                  for sh in cluster.shard_list for a in sh.apps):
+    await wait_settled(cluster, len(want), what, deadline)
+    return elapsed
+
+
+async def wait_settled(cluster, delivered: int, what: str,
+                       deadline: float) -> None:
+    """Poll, awaiting so the cluster runs, until the front door's mux has
+    delivered at least ``delivered`` requests and every replica of each
+    current shard has committed as many as its shard's longest chain;
+    fails at ``deadline`` (``time.perf_counter()``)."""
+    while cluster.committed_requests() < delivered or not all(
+            committed(a) == committed(sh.probe_app())
+            for sh in cluster.shard_list for a in sh.apps):
         if time.perf_counter() > deadline:
-            fail(f"{what}: replicas of a shard stopped short of its "
+            fail(f"{what}: the mux delivered "
+                 f"{cluster.committed_requests()} of {delivered} "
+                 "requests, or a replica stopped short of its shard's "
                  "longest chain")
         await asyncio.sleep(0.02)
-    return elapsed
 
 
 def zero_launch_counters(engine) -> None:
@@ -1251,10 +1310,10 @@ def phase_sharded(wal_root, n=16, batch=500, pipeline=16):
 
 
 def busy_line(cells, comb_row, phase="sharded_busy"):
-    """Device busy of the comb kernel's cells (phases sharded and
-    verify_plane): launches at each rung times the comb kernel's ms at
-    that rung from the kernels line, and the idle share of the cell's
-    elapsed time."""
+    """Device busy of the comb kernel's cells (phases sharded,
+    verify_plane, open_loop and byzantine): launches at each rung times
+    the comb kernel's ms at that rung from the kernels line, and the idle
+    share of the cell's elapsed time."""
     out = {}
     for tag, cell in cells.items():
         busy = sum(k * comb_row["ms_by_rung"][r]
@@ -1448,6 +1507,428 @@ def phase_verify_plane(wal_root, pace=0.03):
     return {"g0": g0, "g": g, "v0": v0, "v": v, "k": k}
 
 
+def openloop_config(s, i):
+    """Every replica's Configuration in cells O1 and O2: the JAX package's
+    open-loop bench settings (``benchmarks/openloop.py`` ``openloop_config``
+    at its defaults: pool 2400, admission high water 0.8, batch cap 128,
+    adaptive proposing on), with its group-commit WAL and its forward,
+    complain, heartbeat and view-change timeouts.  Its verify fault knobs
+    (a 0.15 s launch deadline, 2 retries, breaker after 3) serve the
+    bench's engine-outage phase, which these cells do not run, and stay
+    at their defaults: the deadline is kept on the event loop, so any
+    0.15 s stall of the loop (a full garbage collection, a slow fsync)
+    would count a launch that finished on time as failed."""
+    from smartbft_tpu_torch.testing.sharded import sharded_config
+
+    return dataclasses.replace(
+        sharded_config(i, depth=2),
+        wal_group_commit=True,
+        request_pool_size=2400,
+        admission_high_water=0.8,
+        request_pool_submit_timeout=1.0,
+        request_batch_max_count=128,
+        request_batch_max_interval=0.02,
+        request_batch_adaptive=True,
+        request_forward_timeout=5.0,
+        request_complain_timeout=15.0,
+        request_auto_remove_timeout=240.0,
+        leader_heartbeat_timeout=3.0,
+        leader_heartbeat_count=10,
+        heartbeat_rtt_multiplier=20.0,
+        view_change_timeout=12.0,
+        view_change_resend_interval=3.0,
+    )
+
+
+async def run_open_loop_cell(engine, tag: str, rate: float, wal_root: str,
+                             trace: bool, duration: float = 8.0,
+                             drain: float = 3.0):
+    """One open-loop cell: the JAX package's open-loop bench deployment
+    (``benchmarks/openloop.py``: 2 shards of n = 4, depth 2, window
+    0.005 s, seed 17, :func:`openloop_config`) on ``engine`` with real
+    P-256 votes, pumped by ``testing.load.run_open_loop`` at ``rate``
+    requests a second for ``duration`` seconds of the wall clock (Poisson
+    gaps, 512 Zipf(1.1) clients, seed 31, a 0.005 s step, ``drain``
+    seconds after the last arrival).  Every shard's keys and every pad
+    rung are warmed, and the launch counters zeroed, before the cluster
+    starts.  Returns the run's measurements; ``trace``: the recorders'
+    dumps too."""
+    from smartbft_tpu_torch.testing.load import ZipfClients, run_open_loop
+    from smartbft_tpu_torch.testing.sharded import ShardedCluster
+    from smartbft_tpu_torch.utils.clock import WallClockDriver
+
+    cluster = ShardedCluster(
+        os.path.join(wal_root, tag), shards=2, n=4, depth=2, crypto="p256",
+        engine=engine, window=0.005, seed=17, config_fn=openloop_config,
+        trace=trace, trace_capacity=1 << 16)
+    warm_cluster(engine, cluster, f"open_loop {tag}")
+    zipf = ZipfClients(512, skew=1.1)
+    zero_launch_counters(engine)
+    driver = WallClockDriver(cluster.scheduler, tick_interval=0.005)
+    driver.start()
+    try:
+        await cluster.start()
+        # the goodput window closes when arrivals stop; commits landing in
+        # the drain are real but do not pad the in-window rate
+        in_window = {"n": None}
+        t_end = cluster.scheduler.now() + duration
+
+        def on_tick(now: float) -> None:
+            if in_window["n"] is None and now >= t_end:
+                in_window["n"] = cluster.set.committed_requests()
+
+        t0 = time.perf_counter()
+        stats = await run_open_loop(
+            cluster, rate=rate, duration=duration, clients=zipf, seed=31,
+            wall=True, step=0.005, drain=drain, on_tick=on_tick)
+        elapsed = time.perf_counter() - t0
+        await wait_settled(cluster, stats.acked, f"open_loop {tag}",
+                           time.perf_counter() + 120.0)
+        cluster.check_invariants()
+        latency = cluster.set.latency.snapshot()
+        dumps = [r.dump() for r in cluster.trace_recorders()]
+    finally:
+        await cluster.stop()
+        await driver.stop()
+    total = cluster.committed_requests()
+    goodput = (total if in_window["n"] is None else in_window["n"]) \
+        / duration
+    block = stats.block()
+    per_shard = {}
+    for sh in cluster.shard_list:
+        digests = ledger_digests(sh.apps)
+        per_shard[str(sh.shard_id)] = {
+            "committed": committed(sh.probe_app()),
+            "decisions": len(sh.probe_app().ledger()),
+            "ledger_digests": len(digests),
+            "ledger_digest": sorted(digests)[0][:16],
+        }
+    return {
+        "offered_per_s": rate, "duration_s": duration, "drain_s": drain,
+        "offered": stats.offered, "acked": stats.acked,
+        "shed_admission": stats.shed_admission,
+        "shed_timeout": stats.shed_timeout, "failed": stats.failed,
+        "shed_rate": block["shed_rate"],
+        "goodput_per_s": round(goodput, 1), "committed": total,
+        "latency": latency,
+        "peak_occupancy": stats.peak_occupancy,
+        "peak_fill": block["peak_fill"],
+        "hot_client_share": round(zipf.hot_fraction(1), 3),
+        "slo_met": goodput >= 0.9 * rate and block["shed_rate"] < 0.01,
+        "decisions": sum(v["decisions"] for v in per_shard.values()),
+        "elapsed_s": round(elapsed, 3),
+        "per_shard": per_shard,
+        "breaker": cluster.coalescer.fault_snapshot(),
+        "dumps": dumps,
+    }
+
+
+def open_loop_cell(engine, tag, rate, wal_root, trace):
+    """Cell O1 or O2 through :func:`run_open_loop_cell`; fails unless
+    every submit was acked or shed (none failed), the mux delivered every
+    acked request once and each shard's replicas hold one ledger, and the
+    cell passes :func:`read_cell` for the comb kernel."""
+    run = asyncio.run(run_open_loop_cell(engine, tag, rate, wal_root, trace))
+    if run["failed"]:
+        fail(f"open_loop {tag}: {run['failed']} submits failed with "
+             "something other than a shed")
+    if run["committed"] != run["acked"]:
+        fail(f"open_loop {tag}: the mux delivered {run['committed']} "
+             f"requests for {run['acked']} acked")
+    for sid, sh in run["per_shard"].items():
+        if sh["ledger_digests"] != 1:
+            fail(f"open_loop {tag}: shard {sid}'s replicas hold "
+                 f"{sh['ledger_digests']} different ledgers")
+    run.update(read_cell(engine, "comb", "open_loop", tag, run))
+    return run
+
+
+def phase_open_loop(wal_root, engine=None):
+    """Cells O1 and O2 on one fresh CUDA engine (the P-256 comb kernel):
+    the open-loop bench's deployment at 400 requests a second (O1, a
+    point of its sweep well below its knee, traced) and 1600 (O2, the top
+    of its default sweep, untraced).  O1's recorder dumps are rendered by
+    ``obs.report`` into the per-span-type percentile rows."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
+    from smartbft_tpu_torch.obs.report import render
+
+    if engine is None:
+        engine = TorchVerifyEngine(device="cuda", scheme=p256)
+    o1 = open_loop_cell(engine, "o1", 400.0, wal_root, trace=True)
+    o2 = open_loop_cell(engine, "o2", 1600.0, wal_root, trace=False)
+    text = render(o1.pop("dumps"), summary_only=True)
+    o2.pop("dumps")
+    emit({"phase": "open_loop_trace", "cell": "o1",
+          "report": text.rstrip("\n").split("\n")})
+    keys = ("offered", "acked", "shed_admission", "shed_timeout", "failed",
+            "shed_rate", "goodput_per_s", "peak_occupancy",
+            "hot_client_share", "launches_per_decision", "rung_launches",
+            "fill_pct", "slo_met", "elapsed_s")
+    emit({
+        "phase": "open_loop", "ok": True,
+        "deployment": {"shards": 2, "nodes_per_shard": 4,
+                       "pipeline_depth": 2, "window_s": 0.005,
+                       "request_pool_size": 2400,
+                       "admission_high_water": 0.8,
+                       "request_batch_max_count": 128,
+                       "request_batch_adaptive": True,
+                       "wal_group_commit": True, "clients": 512,
+                       "zipf_skew": 1.1, "duration_s": 8.0, "drain_s": 3.0,
+                       "scheme": "p256"},
+        "summary": {tag: {"commit_ms": {q: cell["latency"][f"{q}_ms"]
+                                        for q in ("p50", "p95", "p99")},
+                          **{k: cell[k] for k in keys}}
+                    for tag, cell in (("o1", o1), ("o2", o2))},
+        "o1": o1, "o2": o2,
+    })
+    return {"o1": o1, "o2": o2}
+
+
+async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
+    """One Byzantine cell: the chaos harness's Byzantine round
+    (``testing.chaos.byzantine_round``: n = 4 with one actor, depth 1,
+    rotation on, 18 requests, ``chaos_config`` with
+    ``misbehavior_shun_threshold=3``, ``misbehavior_decay_interval=600``)
+    on real P-256 keys: ``Keyring.generate(..., scheme=p256)`` -> one
+    ``P256CryptoProvider`` a replica over one shared dedupe coalescer and
+    ``engine`` -> ``testing.App`` on the wall clock, as cell A's cluster
+    is built.  A ``ByzantineActor`` arms the replica the round arms (the
+    initial leader to equivocate, replica 4 to forge votes).  Requests go
+    in one every 0.3 s through each replica in turn, as the round submits
+    them, until every replica has committed all of them.  The round's oracles run before the cluster stops.  Returns
+    the run's measurements."""
+    import threading
+    import types
+
+    from smartbft_tpu_torch.codec import decode
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import (
+        AsyncBatchCoalescer,
+        Keyring,
+        P256CryptoProvider,
+    )
+    from smartbft_tpu_torch.messages import ViewMetadata
+    from smartbft_tpu_torch.testing.app import App, SharedLedgers
+    from smartbft_tpu_torch.testing.byzantine import ByzantineActor
+    from smartbft_tpu_torch.testing.chaos import Invariants, chaos_config
+    from smartbft_tpu_torch.testing.network import Network
+    from smartbft_tpu_torch.utils.clock import Scheduler, WallClockDriver
+
+    n, requests = 4, 18
+    ids = list(range(1, n + 1))
+    rings = Keyring.generate(ids, seed=b"byzantine-chaos", scheme=p256)
+    ring = rings[1]
+    engine.prewarm_keys(ring.public_keys.values())
+    engine.verify([p256.make_item(b"warm", p256.sign_raw(
+        ring.private_key, b"warm"), ring.public_keys[1])])
+    coalescer = AsyncBatchCoalescer(engine, window=0.001, max_batch=4096,
+                                    dedupe=True)
+    scheduler = Scheduler()
+    network = Network(seed=1)
+    shared = SharedLedgers()
+    apps = [
+        App(i, network, shared, scheduler,
+            wal_dir=os.path.join(wal_root, f"{tag}-wal-{i}"),
+            config=chaos_config(i, depth=1, rotation=True,
+                                misbehavior_shun_threshold=3,
+                                misbehavior_decay_interval=600.0),
+            crypto=P256CryptoProvider(rings[i], engine=engine,
+                                      coalescer=coalescer))
+        for i in ids
+    ]
+    # what the chaos invariants read of a cluster
+    cluster = types.SimpleNamespace(depth=1, live_apps=lambda: list(apps))
+    actor_id = 1 if mode == "equivocate" else 4
+    actor_key = rings[actor_id].public_keys[actor_id]
+    # every verify the engine runs, tallied by signer and verdict
+    tally = {"items": 0, "accepted": 0, "actor_items": 0,
+             "actor_accepted": 0}
+    lock = threading.Lock()
+    verify = engine.verify
+
+    def counted(items):
+        out = verify(items)
+        with lock:
+            tally["items"] += len(items)
+            tally["accepted"] += sum(out)
+            mine = [ok for it, ok in zip(items, out) if it[3] == actor_key]
+            tally["actor_items"] += len(mine)
+            tally["actor_accepted"] += sum(mine)
+        return out
+
+    zero_launch_counters(engine)
+    engine.verify = counted
+    driver = WallClockDriver(scheduler, tick_interval=0.01)
+    driver.start()
+    try:
+        for a in apps:
+            await a.start()
+        actor = ByzantineActor(apps[actor_id - 1], network)
+        if mode == "equivocate":
+            actor.equivocate()
+        else:
+            actor.forge_votes(per_preprepare=3)
+        t0 = time.perf_counter()
+        leaders = set()
+        k = 0
+        while k < requests:
+            app = apps[k % n]
+            try:
+                await app.submit("chaos", f"chaos-{k}")
+                k += 1
+            except Exception:  # noqa: BLE001 — no leader yet: retry
+                pass
+            leaders.update(a.consensus.get_leader_id() for a in apps)
+            await asyncio.sleep(0.3)
+        elapsed = (await wait_committed({tag: apps}, requests, t0,
+                                        f"byzantine {tag}"))[tag]
+        leaders.update(a.consensus.get_leader_id() for a in apps)
+        honest = [a for a in apps if a.id != actor_id]
+        try:
+            Invariants.fork_free(cluster)
+            Invariants.exactly_once(cluster, expected=requests)
+            if mode == "equivocate":
+                Invariants.no_equivocation_commit(cluster, actor)
+            else:
+                Invariants.forger_shunned_and_shed(cluster, actor)
+        except AssertionError as exc:
+            fail(f"byzantine {tag}: {exc}")
+        misbehavior = {a.id: a.consensus.misbehavior_snapshot()
+                       for a in honest}
+        final_leaders = {a.consensus.get_leader_id() for a in honest}
+        views = sorted({a.consensus.controller.curr_view_number
+                        for a in apps})
+    finally:
+        engine.verify = verify
+        for a in apps:
+            await a.stop()
+        await driver.stop()
+    forged_values = sum(
+        s.value == b"\x00" * 16
+        for a in honest for d in a.ledger() for s in d.signatures)
+    committed_views = sorted({
+        decode(ViewMetadata, d.proposal.metadata).view_id
+        for d in honest[0].ledger() if d.proposal.metadata})
+    digests = ledger_digests(honest)
+    return {
+        "mode": mode, "actor": actor.snapshot(), "nodes": n,
+        "requests": requests,
+        "committed_min": min(committed(a) for a in apps),
+        "decisions": len(honest[0].ledger()),
+        "ledger_digests": len(digests),
+        "ledger_digest": sorted(digests)[0][:16],
+        "elapsed_s": round(elapsed, 3),
+        "tx_per_s": round(requests / elapsed, 1),
+        "leaders_seen": sorted(leaders),
+        "final_leaders": sorted(final_leaders), "views": views,
+        "committed_views": committed_views,
+        "forged_values_committed": forged_values,
+        "engine_tally": dict(tally),
+        "misbehavior": {
+            str(i): {"by_actor": snap["by_sender"].get(actor_id, {}),
+                     "shunned": actor_id in snap["shunned"],
+                     "shun_events": snap["shun_events"],
+                     "shed_votes": sum(snap["shed_votes"].values())}
+            for i, snap in misbehavior.items()},
+        "actor_commits_resigned": sum(
+            r.kind == "commit" and r.mutated for r in actor.send_log),
+        "breaker": coalescer.fault_snapshot(),
+    }
+
+
+def byzantine_cell(engine, tag, mode, wal_root):
+    """Cell Y1 (``mode`` "forge") or Y2 ("equivocate") through
+    :func:`run_byzantine`, whose chaos oracles must hold (fork-free,
+    exactly once, and the mode's own).  Fails unless every honest replica
+    holds one ledger with every request, no committed decision carries a
+    forged signature, the cell passes :func:`read_cell` for the comb
+    kernel, and: in Y1 the forger is shunned at every honest replica and
+    every signature in the kernel's lanes is one the engine was handed
+    and accepted (the forged values never reach a lane); in Y2 every
+    honest ledger goes on in a view after the one the leader lied in
+    (the oracle also holds the liar to the committed blacklist)."""
+    run = asyncio.run(run_byzantine(engine, tag, mode, wal_root))
+    if run["committed_min"] < run["requests"]:
+        fail(f"byzantine {tag}: a replica committed {run['committed_min']} "
+             f"of {run['requests']}")
+    if run["ledger_digests"] != 1:
+        fail(f"byzantine {tag}: honest replicas hold "
+             f"{run['ledger_digests']} different ledgers")
+    if run["forged_values_committed"]:
+        fail(f"byzantine {tag}: {run['forged_values_committed']} forged "
+             "signatures were committed")
+    run.update(read_cell(engine, "comb", "byzantine", tag, run))
+    actor, tally = run["actor"]["id"], run["engine_tally"]
+    if mode == "forge":
+        unshunned = [i for i, m in run["misbehavior"].items()
+                     if not m["shunned"]]
+        if unshunned:
+            fail(f"byzantine {tag}: forger {actor} is not shunned at "
+                 f"replicas {unshunned}: {run['misbehavior']}")
+        if not tally["items"] == tally["accepted"] == run["sigs_verified"]:
+            fail(f"byzantine {tag}: the kernel's {run['sigs_verified']} "
+                 f"signatures are not the {tally['accepted']} accepted of "
+                 f"{tally['items']} the engine was handed")
+    elif run["committed_views"][-1] <= min(
+            v for v, _ in run["actor"]["equivocated_slots"]):
+        fail(f"byzantine {tag}: nothing committed in a view after the "
+             f"equivocating leader {actor}'s (views "
+             f"{run['committed_views']})")
+    return run
+
+
+def phase_byzantine(wal_root, engine=None):
+    """Cells Y1 and Y2 on one fresh CUDA engine (the P-256 comb kernel):
+    the chaos harness's Byzantine round on real P-256 votes, with a vote
+    forger (Y1) and an equivocating leader (Y2)."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import (
+        TorchVerifyEngine,
+        prewarm_verify_engine,
+    )
+
+    if engine is None:
+        engine = TorchVerifyEngine(device="cuda", scheme=p256)
+    prewarm_verify_engine(engine)
+    y1 = byzantine_cell(engine, "y1", "forge", wal_root)
+    y2 = byzantine_cell(engine, "y2", "equivocate", wal_root)
+
+    def summary(cell):
+        mis = cell["misbehavior"].values()
+        return {
+            "actor": cell["actor"]["id"], "forged": cell["actor"]["forged"],
+            "shed_votes": sum(m["shed_votes"] for m in mis),
+            "shunned_at": [i for i, m in cell["misbehavior"].items()
+                           if m["shunned"]],
+            "rejected_before_the_engine": {
+                i: m["by_actor"] for i, m in cell["misbehavior"].items()},
+            "lanes": cell["kernel_lanes"]["comb"],
+            "sigs_in_lanes": cell["sigs_verified"],
+            "engine_tally": cell["engine_tally"],
+            "equivocated_slots": len(cell["actor"]["equivocated_slots"]),
+            "actor_commits_resigned": cell["actor_commits_resigned"],
+            "leaders_seen": cell["leaders_seen"],
+            "final_leaders": cell["final_leaders"], "views": cell["views"],
+            "committed_views": cell["committed_views"],
+            "launches_per_decision": cell["launches_per_decision"],
+            "tx_per_s": cell["tx_per_s"], "elapsed_s": cell["elapsed_s"],
+        }
+
+    emit({
+        "phase": "byzantine", "ok": True,
+        "deployment": {"nodes": 4, "actors": 1, "pipeline_depth": 1,
+                       "leader_rotation": True, "requests": 18,
+                       "misbehavior_shun_threshold": 3,
+                       "misbehavior_decay_interval_s": 600.0,
+                       "shared_dedupe_coalescer": True, "window_s": 0.001,
+                       "scheme": "p256"},
+        "y1_forge": summary(y1), "y2_equivocate": summary(y2),
+        "y1": y1, "y2": y2,
+    })
+    return {"y1": y1, "y2": y2}
+
+
 def bls_args16(rec):
     """The pairing kernel's 16384-lane arguments: the 2048-lane batch of
     phase bls eight times over."""
@@ -1518,9 +1999,9 @@ def phase_kernels(recs, cells, clock_hz, sms, sharded):
     the main rung and at 16384 (CUDA events), the plain version's time and
     the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
     ``recs``: the kernel phases' records by kernel name; ``cells``: the
-    e2e cells by kernel name; ``sharded``: the cells of phases sharded and
-    verify_plane by tag, whose comb launches and rungs the comb kernel's
-    row carries too."""
+    e2e cells by kernel name; ``sharded``: the cells of phases sharded,
+    verify_plane, open_loop and byzantine by tag, whose comb launches and
+    rungs the comb kernel's row carries too."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
@@ -1751,10 +2232,14 @@ def main() -> int:
                  **timed("e2e_bls", phase_e2e_bls, wal_root)}
         sharded = timed("sharded", phase_sharded, wal_root)
         plane = timed("verify_plane", phase_verify_plane, wal_root)
+        loads = timed("open_loop", phase_open_loop, wal_root)
+        byz = timed("byzantine", phase_byzantine, wal_root)
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
-                      {**sharded, **plane})
+                      {**sharded, **plane, **loads, **byz})
         busy_line(sharded, rows[0])
         busy_line(plane, rows[0], "verify_plane_busy")
+        busy_line(loads, rows[0], "open_loop_busy")
+        busy_line(byz, rows[0], "byzantine_busy")
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

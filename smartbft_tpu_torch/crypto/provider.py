@@ -1431,6 +1431,15 @@ class CryptoProvider:
             raise ValueError(f"unknown signer {signature.signer}")
         return self.scheme.make_item(signature.msg, signature.value, pub)
 
+    def _malformed(self, signature: Signature) -> str:
+        """The cause of a vote that did not become a verify item: a signer
+        outside the membership, or else a member's signature value the
+        scheme cannot read (a wrong length), which is an invalid
+        signature of that member."""
+        return ("unknown_signer"
+                if signature.signer not in self.keyring.public_keys
+                else "invalid_sig")
+
     def _check_binding(self, signature: Signature, proposal: Proposal,
                        digest: Optional[str] = None) -> bytes:
         """Digest binding check; returns aux.  Raises on mismatch.
@@ -1462,7 +1471,7 @@ class CryptoProvider:
         try:
             item = self._item(signature)
         except Exception:
-            self._note_invalid(signature.signer, "unknown_signer")
+            self._note_invalid(signature.signer, self._malformed(signature))
             raise
         ok = self.engine.verify([item])[0]
         if not ok:
@@ -1498,7 +1507,7 @@ class CryptoProvider:
                 items.append(self._item(sig))
             except Exception:
                 auxes.append(None)
-                self._note_invalid(sig.signer, "unknown_signer")
+                self._note_invalid(sig.signer, self._malformed(sig))
                 continue
             idxs.append(i)
             auxes.append(aux)
@@ -1532,10 +1541,7 @@ class CryptoProvider:
         try:
             item = self._item(signature)
         except Exception as exc:
-            cause = ("unknown_signer"
-                     if signature.signer not in self.keyring.public_keys
-                     else "invalid_sig")
-            self._note_invalid(signature.signer, cause)
+            self._note_invalid(signature.signer, self._malformed(signature))
             raise ValueError(f"malformed signature from {signature.signer}: {exc}")
         try:
             ok = self.engine.verify([item])[0]

@@ -135,10 +135,9 @@ def test_derive_knobs_matches_the_jax_package(seed):
 
 # ------------------------------------------------ the reference's own cases
 
-CASES = {"test_control.py": 20}
+CASES = {"test_control.py": 21}
 LEFT_OUT = {"test_control.py": [
     "test_control_client_pools_and_reconnects",
-    "test_remediation_storm_round",
     "test_selfdrive_baseline_guard_trips_on_thrash_and_oscillation",
     "test_selfdrive_rows_validate_and_identify"]}
 
@@ -146,10 +145,11 @@ globals().update(reference_tests("test_control.py"))
 
 
 def test_reference_cases_are_whole_and_ported():
-    """The cases that need the socket control client (``net.cluster``),
-    the bench-row schema and baseline guard (``obs.benchschema``,
-    ``obs.baseline``) or the chaos round (``testing.chaos``) are left out
-    until those modules are ported; every other case runs on the port."""
+    """The cases that need the socket control client (``net.cluster``)
+    or the bench-row schema and baseline guard (``obs.benchschema``,
+    ``obs.baseline``) are left out until those modules are ported; every
+    other case runs on the port, the chaos harness's remediation-storm
+    round included."""
     check_matrices(CASES, LEFT_OUT)
     got = reference_tests("test_control.py")
     assert got["test_control__test_derive_knobs_clamps_and_quantizes"] \

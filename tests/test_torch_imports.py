@@ -77,3 +77,11 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_scan_covers_the_fault_and_load_harnesses():
+    """The chaos, open-loop load and Byzantine harnesses and the trace
+    report, under the JAX package's names."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"testing/load.py", "testing/chaos.py", "testing/byzantine.py",
+            "obs/report.py"} <= have

@@ -286,12 +286,12 @@ globals().update(reference_tests("test_critpath.py"))
 
 
 def test_reference_cases_leave_out_only_unported_needs():
-    """Left out: the chaos-harness cases of test_health_slo.py (they need
-    ``testing.chaos`` and ``obs.report``); everything else runs on the
-    port, test_critpath.py's single-node case on the port-compiled copy of
-    the test file whose helpers it borrows."""
+    """Every case runs on the port, the chaos-harness cases of
+    test_health_slo.py included, and test_critpath.py's single-node case
+    on the port-compiled copy of the test file whose helpers it
+    borrows."""
     ids = reference_tests("test_health_slo.py")
-    assert len(ids) == 16 - 2
+    assert len(ids) == 16
     assert "test_health_slo__test_sharded_cluster_health_surface" in ids
     ids = reference_tests("test_critpath.py")
     assert len(ids) == 9

@@ -24,7 +24,7 @@ from smartbft_tpu_torch.shard import epoch as t_epoch
 from smartbft_tpu_torch.shard import mux as t_mux
 from smartbft_tpu_torch.shard import router as t_router
 from smartbft_tpu_torch.testing import app as t_app
-from torch_reference import reference_tests
+from torch_reference import dropped_tests, reference_tests
 
 
 # ---------------------------------------------------------------- router
@@ -255,16 +255,20 @@ def test_autoscaler_decisions_match(seed):
 # -------------------------------------------- the reference's case matrices
 
 globals().update(reference_tests("test_sharded.py", 41, 221))
-globals().update(reference_tests("test_reshard.py", 63, 750))
+globals().update(reference_tests("test_reshard.py", 63))
 
 
 def test_reference_cases_cover_the_matrices():
-    """Every case of the two ranges runs on the port: none of them needs
-    a module it does not have yet (the live reshard cases after line 750
-    need ``testing.chaos``)."""
+    """Every case of the two ranges runs on the port, the live reshard
+    cases at the end of test_reshard.py included; only its soak, which
+    the reference marks slow, stays out."""
     cases = reference_tests("test_sharded.py", 41, 221) \
-        | reference_tests("test_reshard.py", 63, 750)
-    assert len(cases) == 9 + 30
+        | reference_tests("test_reshard.py", 63)
+    assert len(cases) == 9 + 32
+    assert dropped_tests("test_reshard.py", 63) == {
+        "test_reshard_soak_slow": "marked slow"}
+    assert "test_reshard__test_live_reshard_smoke_2_to_3" in cases
+    assert "test_reshard__test_reshard_crash_during_handoff_2_4_3" in cases
     # compiled against the port, not the JAX package
     for fn in cases.values():
         assert fn.__globals__["ShardRouter"].__module__ == \

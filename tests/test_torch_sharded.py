@@ -381,9 +381,9 @@ globals().update(reference_tests("test_sharded.py", 222))
 
 def test_reference_cluster_cases_are_all_there():
     """Every cluster case of the reference file from line 222 runs on the
-    port but the chaos soak (marked slow, and ``testing.chaos`` is not
-    ported): a renamed port module or a new unported import in a case
-    would otherwise drop it from the collection without a trace."""
+    port but the chaos soak, which the reference marks slow: a renamed
+    port module or a new unported import in a case would otherwise drop
+    it from the collection without a trace."""
     cases = reference_tests("test_sharded.py", 222)
     assert [name.split("__")[1] for name in cases] == [
         "test_group_namespacing_no_inbox_collisions",
@@ -395,7 +395,7 @@ def test_reference_cluster_cases_are_all_there():
         "test_plane_registry_prunes_dead_instances",
         "test_tpu_counters_aggregate_rolls_up_per_shard_providers",
         "test_breaker_cycle_affects_all_shards_coherently",
-    ]  # left out: test_sharded_chaos_soak
+    ]  # left out: test_sharded_chaos_soak (marked slow)
     for fn in cases.values():
         assert fn.__globals__["ShardedCluster"].__module__ == \
             "smartbft_tpu_torch.testing.sharded"

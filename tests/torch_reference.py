@@ -18,7 +18,7 @@ What the reference files share resolves to port copies too:
   port-compiled copy of that file.
 
 A statement is left out when it needs what the port does not have: a
-module (``testing.chaos``, ``net.transport``, ``parallel``, ...), a name
+module (``net.transport``, ``net.launch``, ``parallel``, ...), a name
 such a module would give (``JaxVerifyEngine``), a file outside ``tests/``
 (``benchmarks/*.py``), or a top-level name left out for one of these
 reasons.  So a missing name drops only the helpers and cases that use
