@@ -154,26 +154,59 @@ Phases, one JSON line each; any failure exits non-zero:
                 cell of phases 10 and 11 passes ``read_cell`` for the
                 comb kernel; ``open_loop_busy`` and ``byzantine_busy``
                 follow the kernels line.
-12. kernels   — one line with the five kernels: launches in their cell,
+12. sockets   — BASELINE config [2] over real sockets: n=16, batch 500,
+                depth 16, group-commit WAL, a 32-decision burst, rotation
+                off, on a fresh engine with real P-256 votes through one
+                shared dedupe coalescer, built as cell A.  Its first line
+                (``sockets_fds``) is the open-file limit, the soft one
+                raised to the hard one when below 4096.  Cell T0 runs the
+                deployment on the in-process network; T1 gives each
+                replica its own ``net.transport.SocketComm`` over UDS
+                (one process, one event loop, frames over kernel
+                sockets), T2 over TCP on 127.0.0.1.  Each prints tx/s,
+                elapsed, launches a decision, rungs and fill; T1 and T2
+                also the transport counters summed over the 16 replicas
+                (bytes, frames a flush, reconnects, drops, malformed
+                frames) and the seconds their stop took.  A T cell fails
+                unless every replica committed exactly the 16,000
+                requests into one ledger, it passes ``read_cell`` for the
+                comb kernel, no frame was malformed and no transport task
+                outlived the stop.  Then the process-per-replica cluster
+                (``net.cluster.SocketCluster``: one ``python -m
+                smartbft_tpu_torch.net.launch`` process a replica over
+                UDS, trivial crypto, no kernel): cell R4 (n=4) SIGKILLs
+                the leader mid-burst and respawns it
+                (``run_socket_schedule(cluster, kill_rejoin_schedule(),
+                requests=16)``), cell R16 (n=16) commits 8 requests.  Each
+                prints the events fired, heights and committed requests
+                at every replica, fork-freedom, and every replica's exit
+                code at ``stop()``; it fails unless R4 fired exactly
+                crash and restart, every replica (the restarted one by
+                wire sync) reached the cluster's height, the ledgers are
+                fork-free, no kernel launched and every replica exited
+                with code 0 (a replica still running at ``stop()``'s
+                10 s deadline is SIGKILLed).  ``sockets_busy`` follows
+                the kernels line.
+13. kernels   — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
                 also carries its launches, lanes and rungs in cells F1,
-                F, G0, G, V0, V, K, O1, O2, Y1 and Y2 (``cells``), and is
-                timed at their rungs too.
-13. generic_groups — the generic P-256 kernel at each group size (threads
+                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1 and T2
+                (``cells``), and is timed at their rungs too.
+14. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-14. ed_generic_groups — the same for the generic Ed25519 kernel: the
+15. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-15. comb_groups — the same for the P-256 comb kernel: the library (8
+16. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-16. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+17. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-17. bls_groups — the same for the BLS12-381 pairing kernel: the library
+18. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -793,10 +826,16 @@ async def wait_committed(groups: dict, requests: int, t0: float,
 
 
 async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
-                      pipeline: int, wal_root: str, tag: str, pops=None):
+                      pipeline: int, wal_root: str, tag: str, pops=None,
+                      transport=None):
     """One n-replica deployment over a shared engine: commit ``decisions``
     x ``batch`` requests; returns the run's measurements.  ``pops``: the
-    proofs of possession a BLS12-381 provider is given."""
+    proofs of possession a BLS12-381 provider is given.  ``transport``:
+    None for the in-process ``Network``; ``"uds"`` or ``"tcp"`` gives
+    each replica its own ``SocketComm`` (one process, one event loop,
+    frames over real kernel sockets), and the run then also returns the
+    transport counters summed over the replicas, the seconds the replicas
+    took to stop, and the transport tasks left after the stop."""
     from smartbft_tpu_torch.crypto import bls12381, ed25519
     from smartbft_tpu_torch.crypto.provider import (
         AsyncBatchCoalescer,
@@ -804,6 +843,7 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         Ed25519CryptoProvider,
         P256CryptoProvider,
     )
+    from smartbft_tpu_torch.metrics import PROTOCOL_PLANE, ProtocolPlaneTimers
     from smartbft_tpu_torch.testing.app import App, SharedLedgers, fast_config
     from smartbft_tpu_torch.testing.network import Network
     from smartbft_tpu_torch.utils.clock import Scheduler, WallClockDriver
@@ -828,12 +868,14 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         dedupe=True)
     scheduler = Scheduler()
     driver = WallClockDriver(scheduler, tick_interval=0.01)
-    network = Network(seed=13)
+    network = Network(seed=13) if transport is None else None
+    comms = socket_comms(node_ids, transport, wal_root, tag)
     shared = SharedLedgers()
     apps = [
         App(i, network, shared, scheduler,
             wal_dir=os.path.join(wal_root, f"{tag}-wal-{i}"), config=cfg(i),
-            crypto=provider(rings[i], engine=engine, coalescer=coalescer))
+            crypto=provider(rings[i], engine=engine, coalescer=coalescer),
+            comm=comms.get(i))
         for i in node_ids
     ]
 
@@ -842,25 +884,105 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
         for a in apps:
             await a.start()
         t0 = time.perf_counter()
+        # the default plane, which both the in-process network and the
+        # sockets feed: the process-wide aggregate drops the counts of
+        # planes collected in the window (earlier phases' shard planes)
+        plane0 = PROTOCOL_PLANE.snapshot()
         for k in range(requests):
             await apps[0].submit("bench", f"{tag}-req-{k}")
         elapsed = (await wait_committed({tag: apps}, requests, t0,
                                         f"e2e {tag}"))[tag]
+        plane = ProtocolPlaneTimers.delta(plane0, PROTOCOL_PLANE.snapshot())
+        net = socket_totals(comms)
     finally:
+        t_stop = time.perf_counter()
         for a in apps:
             await a.stop()
+        stop_s = time.perf_counter() - t_stop
         await driver.stop()
+        if transport == "uds":
+            sockdir = comms[node_ids[0]].listen[len("uds://"):]
+            shutil.rmtree(os.path.dirname(sockdir), ignore_errors=True)
     digests = ledger_digests(apps)
-    return {
+    out = {
         "nodes": n, "requests": requests,
         "committed_min": min(committed(a) for a in apps),
+        "committed_max": max(committed(a) for a in apps),
         "decisions": len(apps[0].ledger()),
         "ledger_digests": len(digests),
         "ledger_digest": sorted(digests)[0][:16],
         "elapsed_s": round(elapsed, 3),
         "tx_per_s": round(requests / elapsed, 1),
         "breaker": coalescer.fault_snapshot(),
+        # the message plane in the window: ingest ticks and the messages
+        # they carried, and its four disjoint terms (µs, all replicas)
+        "protocol_plane": {
+            **{k: plane[k] for k in ("msgs_ingested", "batch_ingests",
+                                     "ingest_us", "route_us", "codec_us",
+                                     "vote_reg_us")},
+            "msgs_per_ingest": round(plane["msgs_ingested"]
+                                     / max(plane["batch_ingests"], 1), 2)},
     }
+    if comms:
+        out.update(transport=net, stop_s=round(stop_s, 3),
+                   transport_tasks_left=sorted(
+                       t.get_name() for t in asyncio.all_tasks()
+                       if t.get_name().startswith("net-")))
+    return out
+
+
+def socket_comms(node_ids, transport, wal_root: str, tag: str) -> dict:
+    """One ``SocketComm`` a replica over ``transport`` (``"uds"``: sockets
+    in a directory of the run's own under ``wal_root``, or under /tmp
+    where that path would pass the ~107-byte UDS limit; ``"tcp"``:
+    127.0.0.1, ports reserved up front), or {} for the in-process
+    network."""
+    import tempfile
+
+    from smartbft_tpu_torch.net.cluster import _free_port
+    from smartbft_tpu_torch.net.transport import SocketComm
+
+    if transport is None:
+        return {}
+    if transport == "uds":
+        sockdir = os.path.join(wal_root, f"{tag}-s")
+        if len(sockdir) > 90:
+            sockdir = tempfile.mkdtemp(prefix="sbft-", dir="/tmp")
+        os.makedirs(sockdir, exist_ok=True)
+        addrs = {i: f"uds://{sockdir}/n{i}.sock" for i in node_ids}
+    else:
+        addrs = {i: f"tcp://127.0.0.1:{_free_port()}" for i in node_ids}
+    return {i: SocketComm(i, addrs[i],
+                          {j: a for j, a in addrs.items() if j != i},
+                          cluster_key=b"smoke", backoff_base=0.01,
+                          backoff_max=0.2)
+            for i in node_ids}
+
+
+def socket_totals(comms: dict) -> dict:
+    """The replicas' ``TransportMetrics`` summed, as the JAX package's
+    transport bench reports them: bytes, frames, frames a flush,
+    reconnects, drops and malformed frames."""
+    if not comms:
+        return {}
+    from smartbft_tpu_torch.net.transport import TransportMetrics
+
+    total = TransportMetrics()
+    connected = 0
+    for comm in comms.values():
+        snap = comm.transport_snapshot()
+        for name in TransportMetrics.__slots__:
+            setattr(total, name, getattr(total, name) + snap[name])
+        connected += snap["peers_connected"]
+    snap = total.snapshot()
+    keep = ("bytes_sent", "bytes_received", "frames_sent", "frames_received",
+            "flush_batches", "frames_per_flush", "ingest_batches",
+            "connects", "reconnects", "connect_failures", "outbox_dropped",
+            "link_dropped", "malformed_frames", "connections_dropped",
+            "handshake_rejected")
+    out = {k: snap[k] for k in keep}
+    out["peers_connected"] = connected
+    return out
 
 
 def launch_counters() -> dict:
@@ -1311,7 +1433,7 @@ def phase_sharded(wal_root, n=16, batch=500, pipeline=16):
 
 def busy_line(cells, comb_row, phase="sharded_busy"):
     """Device busy of the comb kernel's cells (phases sharded,
-    verify_plane, open_loop and byzantine): launches at each rung times
+    verify_plane, open_loop, byzantine and sockets): launches at each rung times
     the comb kernel's ms at that rung from the kernels line, and the idle
     share of the cell's elapsed time."""
     out = {}
@@ -1929,6 +2051,195 @@ def phase_byzantine(wal_root, engine=None):
     return {"y1": y1, "y2": y2}
 
 
+def raise_fd_limit() -> dict:
+    """This process's open-file limit, its soft limit raised to the hard
+    one when it is below 4096 (n = 16 ``SocketComm``s in one process hold
+    ~500 sockets besides the WAL files); acts on this process only."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    out = {"soft": soft, "hard": hard, "raised_to": None}
+    if soft != resource.RLIM_INFINITY and soft < 4096 and hard != soft:
+        new = hard if hard != resource.RLIM_INFINITY else 65536
+        resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+        out["raised_to"] = new
+    return out
+
+
+def socket_cell(engine, tag, transport, rings, ids, decisions, batch,
+                pipeline, wal_root):
+    """Cell T0 (``transport`` None: the in-process network), T1 (UDS) or
+    T2 (TCP): the deployment of :func:`run_cluster` on ``engine``.  The
+    launch counters are zeroed just before the run and read just after
+    it.  Fails unless every replica committed every request into one
+    ledger, the cell passes :func:`read_cell` for the comb kernel, and,
+    over sockets, no frame was malformed and no transport task outlived
+    the replicas' stop."""
+    zero_launch_counters(engine)
+    run = asyncio.run(run_cluster(engine, rings, ids, decisions, batch,
+                                  pipeline, wal_root, tag,
+                                  transport=transport))
+    if not run["committed_min"] == run["committed_max"] == run["requests"]:
+        fail(f"sockets {tag}: replicas committed {run['committed_min']} to "
+             f"{run['committed_max']} of {run['requests']}")
+    if run["ledger_digests"] != 1:
+        fail(f"sockets {tag}: replicas hold {run['ledger_digests']} "
+             "different ledgers")
+    run.update(read_cell(engine, "comb", "sockets", tag, run))
+    if transport is not None:
+        net = run["transport"]
+        if net["malformed_frames"] or net["handshake_rejected"]:
+            fail(f"sockets {tag}: the transport saw bad frames: {net}")
+        if not net["flush_batches"] or net["frames_per_flush"] < 1.0:
+            fail(f"sockets {tag}: no flush went out: {net}")
+        if run["transport_tasks_left"]:
+            fail(f"sockets {tag}: transport tasks outlived the stop: "
+                 f"{run['transport_tasks_left']}")
+    run["transport_kind"] = transport or "inproc"
+    return run
+
+
+def process_cell(tag, n, wal_root, kill_rejoin: bool) -> dict:
+    """Cell R4 (``kill_rejoin``: n = 4, the leader SIGKILLed mid-burst and
+    respawned, ``run_socket_schedule(cluster, kill_rejoin_schedule(),
+    requests=16)``) or R16 (n = 16, eight requests through every replica
+    in turn): one ``python -m smartbft_tpu_torch.net.launch`` process a
+    replica over UDS (``SocketCluster``), trivial crypto, so no kernel.
+    Fails unless the schedule fired exactly ["crash", "restart"] (R4),
+    every request committed, the ledgers are fork-free, every replica
+    reached the cluster's height (the restarted one by wire sync), no
+    kernel launched, and every replica exited with code 0 at ``stop()``
+    (one still running at its 10 s deadline is SIGKILLed: -9)."""
+    from smartbft_tpu_torch.net.cluster import (
+        SocketCluster,
+        kill_rejoin_schedule,
+        run_socket_schedule,
+    )
+
+    before = {k: c.launches for k, c in launch_counters().items()}
+    path = os.pathsep.join([HERE] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    cluster = SocketCluster(os.path.join(wal_root, tag), n=n,
+                            transport="uds", env={"PYTHONPATH": path})
+    out = {"nodes": n, "transport": "uds"}
+    t0 = time.perf_counter()
+    try:
+        cluster.start(ready_timeout=60.0)
+        out["ready_s"] = round(time.perf_counter() - t0, 3)
+        leader = cluster.wait_leader(timeout=60.0)
+        t1 = time.perf_counter()
+        if kill_rejoin:
+            report = run_socket_schedule(cluster, kill_rejoin_schedule(),
+                                         requests=16)
+            out.update(events=[[a, node] for a, node in report.events_fired],
+                       submitted=report.submitted,
+                       final_committed=report.final_committed)
+            want = 16
+        else:
+            want = 8
+            for k in range(want):
+                cluster.submit(cluster.live_ids()[k % n], "scale",
+                               f"req-{k}")
+        try:
+            # every replica, a restarted one by wire sync
+            cluster.wait_committed(want, timeout=120.0)
+        except TimeoutError as exc:
+            fail(f"sockets {tag}: {exc}")
+        out["elapsed_s"] = round(time.perf_counter() - t1, 3)
+        deadline = time.monotonic() + 30.0
+        heights = cluster.heights()
+        while len(set(heights.values())) != 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+            heights = cluster.heights()
+        try:
+            cluster.check_fork_free()
+            out["fork_free"] = True
+        except AssertionError as exc:
+            fail(f"sockets {tag}: ledgers fork: {exc}")
+        committed_ids = {i: len(cluster.committed_ids(i))
+                         for i in cluster.live_ids()}
+        out.update(first_leader=leader, heights=heights,
+                   committed=committed_ids)
+    finally:
+        t_stop = time.perf_counter()
+        cluster.stop()
+        out["stop_s"] = round(time.perf_counter() - t_stop, 3)
+        out["exit_codes"] = {str(i): h.proc.returncode
+                             for i, h in cluster.replicas.items()
+                             if h.proc is not None}
+    if kill_rejoin:
+        if [a for a, _ in out["events"]] != ["crash", "restart"]:
+            fail(f"sockets {tag}: the schedule fired {out['events']}")
+        out["restarted"] = out["events"][1][1]
+        out["restarted_height"] = heights[out["restarted"]]
+        if out["final_committed"] < want:
+            fail(f"sockets {tag}: {out['final_committed']} of {want} "
+                 "committed")
+    if len(set(heights.values())) != 1 or min(committed_ids.values()) < want:
+        fail(f"sockets {tag}: replicas stand at heights {heights} with "
+             f"{committed_ids} requests, not all {want}")
+    if out["exit_codes"] != {str(i): 0 for i in range(1, n + 1)}:
+        fail(f"sockets {tag}: replicas exited {out['exit_codes']}")
+    after = {k: c.launches for k, c in launch_counters().items()}
+    if after != before:
+        fail(f"sockets {tag}: a kernel launched in a process cell: "
+             f"{before} -> {after}")
+    return out
+
+
+def phase_sockets(wal_root, n=16, batch=500, pipeline=16, decisions=32):
+    """BASELINE config [2] over real sockets on one fresh CUDA engine (the
+    P-256 comb kernel): cells T0 (in-process network), T1 (a
+    ``SocketComm`` a replica over UDS) and T2 (over TCP), each a
+    32-decision burst of n = 16, batch 500, depth 16, as cell F1; then the
+    process-per-replica cells R4 (kill and rejoin) and R16."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import Keyring, TorchVerifyEngine
+
+    fds = raise_fd_limit()
+    emit({"phase": "sockets_fds", "ok": True, "rlimit_nofile": fds})
+    ids = list(range(1, n + 1))
+    rings = Keyring.generate(ids, seed=b"smoke-sockets")
+    ring = rings[ids[0]]
+    engine = TorchVerifyEngine(device="cuda", scheme=p256)
+    engine.prewarm_keys(ring.public_keys.values())
+    engine.prewarm_shapes(p256.make_item(
+        b"warm", p256.sign_raw(ring.private_key, b"warm"),
+        ring.public_keys[ids[0]]))
+    cells = {}
+    for tag, transport in (("t0", None), ("t1", "uds"), ("t2", "tcp")):
+        cells[tag] = socket_cell(engine, tag, transport, rings, ids,
+                                 decisions, batch, pipeline, wal_root)
+    digests = {t: c["ledger_digest"] for t, c in cells.items()}
+    r4 = process_cell("r4", 4, wal_root, kill_rejoin=True)
+    r16 = process_cell("r16", 16, wal_root, kill_rejoin=False)
+
+    def summary(cell):
+        keep = ("transport_kind", "tx_per_s", "elapsed_s", "decisions",
+                "committed_min", "launches_per_decision", "rung_launches",
+                "fill_pct", "sigs_verified", "protocol_plane", "stop_s",
+                "transport")
+        return {k: cell[k] for k in keep if k in cell}
+
+    emit({
+        "phase": "sockets", "ok": True,
+        "deployment": {"nodes": n, "request_batch_max_count": batch,
+                       "pipeline_depth": pipeline, "wal_group_commit": True,
+                       "decisions": decisions, "leader_rotation": False,
+                       "shared_dedupe_coalescer": True, "window_s": 0.02,
+                       "scheme": "p256"},
+        "t0_inproc": summary(cells["t0"]), "t1_uds": summary(cells["t1"]),
+        "t2_tcp": summary(cells["t2"]),
+        "tx_per_s_vs_t0": {t: round(c["tx_per_s"] / cells["t0"]["tx_per_s"],
+                                    3) for t, c in cells.items()},
+        "ledger_digests": digests,
+        "r4_kill_rejoin": r4, "r16": r16,
+        "t0": cells["t0"], "t1": cells["t1"], "t2": cells["t2"],
+    })
+    return cells
+
+
 def bls_args16(rec):
     """The pairing kernel's 16384-lane arguments: the 2048-lane batch of
     phase bls eight times over."""
@@ -2000,8 +2311,8 @@ def phase_kernels(recs, cells, clock_hz, sms, sharded):
     the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
     ``recs``: the kernel phases' records by kernel name; ``cells``: the
     e2e cells by kernel name; ``sharded``: the cells of phases sharded,
-    verify_plane, open_loop and byzantine by tag, whose comb launches and
-    rungs the comb kernel's row carries too."""
+    verify_plane, open_loop, byzantine and sockets by tag, whose comb
+    launches and rungs the comb kernel's row carries too."""
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
@@ -2234,12 +2545,14 @@ def main() -> int:
         plane = timed("verify_plane", phase_verify_plane, wal_root)
         loads = timed("open_loop", phase_open_loop, wal_root)
         byz = timed("byzantine", phase_byzantine, wal_root)
+        socks = timed("sockets", phase_sockets, wal_root)
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
-                      {**sharded, **plane, **loads, **byz})
+                      {**sharded, **plane, **loads, **byz, **socks})
         busy_line(sharded, rows[0])
         busy_line(plane, rows[0], "verify_plane_busy")
         busy_line(loads, rows[0], "open_loop_busy")
         busy_line(byz, rows[0], "byzantine_busy")
+        busy_line(socks, rows[0], "sockets_busy")
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

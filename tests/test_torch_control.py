@@ -10,7 +10,7 @@ packages' ``derive_knobs``: the ``Remediation`` sequences, the policies'
 snapshots and the derived knobs (``verify_flush_hold`` among them) must
 be identical.  Then the reference's own cases of ``tests/test_control.py``,
 compiled against the port by :mod:`torch_reference`, under an exact count
-guard.
+guard.  Every case runs under a time limit of its own.
 """
 
 import dataclasses
@@ -19,11 +19,13 @@ import importlib
 import numpy as np
 import pytest
 
-from torch_reference import check_matrices, reference_tests
+from torch_reference import case_time_limit, check_matrices, reference_tests
 
 PACKAGES = ("smartbft_tpu", "smartbft_tpu_torch")
 SLOS = ("latency.commit_p99_ms", "viewchange.detection_seconds",
         "pool.fill", "verify.breaker_open")
+
+time_limit = case_time_limit(60)
 
 
 def _stream(seed: int, ticks: int = 400):
@@ -135,9 +137,8 @@ def test_derive_knobs_matches_the_jax_package(seed):
 
 # ------------------------------------------------ the reference's own cases
 
-CASES = {"test_control.py": 21}
+CASES = {"test_control.py": 22}
 LEFT_OUT = {"test_control.py": [
-    "test_control_client_pools_and_reconnects",
     "test_selfdrive_baseline_guard_trips_on_thrash_and_oscillation",
     "test_selfdrive_rows_validate_and_identify"]}
 
@@ -145,11 +146,11 @@ globals().update(reference_tests("test_control.py"))
 
 
 def test_reference_cases_are_whole_and_ported():
-    """The cases that need the socket control client (``net.cluster``)
-    or the bench-row schema and baseline guard (``obs.benchschema``,
-    ``obs.baseline``) are left out until those modules are ported; every
-    other case runs on the port, the chaos harness's remediation-storm
-    round included."""
+    """The cases that need the bench-row schema and baseline guard
+    (``obs.benchschema``, ``obs.baseline``) are left out until those
+    modules are ported; every other case runs on the port, the socket
+    control client (``net.cluster``) and the chaos harness's
+    remediation-storm round included."""
     check_matrices(CASES, LEFT_OUT)
     got = reference_tests("test_control.py")
     assert got["test_control__test_derive_knobs_clamps_and_quantizes"] \

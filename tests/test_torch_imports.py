@@ -85,3 +85,30 @@ def test_scan_covers_the_fault_and_load_harnesses():
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"testing/load.py", "testing/chaos.py", "testing/byzantine.py",
             "obs/report.py"} <= have
+
+
+def test_scan_covers_the_socket_transport():
+    """The socket transport, the replica process and its cluster, under
+    the JAX package's names."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"net/transport.py", "net/launch.py", "net/cluster.py"} <= have
+
+
+def test_a_replica_process_touches_no_cuda():
+    """``python -m smartbft_tpu_torch.net.launch`` is the replica process
+    that ``SocketCluster`` spawns; its crypto is trivial, so importing it
+    loads no kernel module and leaves CUDA uninitialised (on the card's
+    machine n such processes share the card with the parent)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, smartbft_tpu_torch.net.launch, "
+            "smartbft_tpu_torch.net.cluster\n"
+            "kern = sorted(k for k in sys.modules "
+            "if k.rsplit('.', 1)[-1].startswith('cuda_'))\n"
+            "torch = sys.modules.get('torch')\n"
+            "print(kern, torch is not None and torch.cuda.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"

@@ -4,32 +4,27 @@ forger, a censoring leader under open-loop load, stale-view replay, a
 flood of unique forged messages, and the misbehavior table's units),
 compiled against ``smartbft_tpu_torch`` by :mod:`torch_reference` and
 collected here as items of their own (``<file stem>__<case>``), under an
-exact count guard.
+exact count guard.  The sync-poisoning round runs its rejoining replica
+as a socket replica of the port's ``net.launch``; every case runs under a
+time limit of its own.
 
-Left out: the sync-poisoning round, whose rejoining replica is the
-socket replica of ``net.launch`` (not ported yet), and the latency probe
-the reference marks slow."""
+Left out: the latency probe the reference marks slow."""
 
-from torch_reference import check_matrices, reference_tests
+from torch_reference import case_time_limit, check_matrices, reference_tests
 
-#: cases that need a module the port does not have yet; the reference
-#: imports it inside the function, so the compiler cannot see it
-UNPORTED = {
-    "test_sync_poisoning_rejected_and_liar_donor_shunned":
-        "sync_poison_round imports net.launch (socket replicas)",
-}
-CASES = {"test_byzantine_actors.py": 13}
+CASES = {"test_byzantine_actors.py": 14}
 LEFT_OUT = {"test_byzantine_actors.py": [
-    "test_byzantine_latency_probe_pair_and_row",
-    "test_sync_poisoning_rejected_and_liar_donor_shunned"]}
+    "test_byzantine_latency_probe_pair_and_row"]}
+
+time_limit = case_time_limit(60)
 
 for _file in CASES:
-    globals().update(reference_tests(_file, leave_out=UNPORTED))
+    globals().update(reference_tests(_file))
 
 
 def test_reference_matrices_are_whole_and_ported():
-    check_matrices(CASES, LEFT_OUT, UNPORTED)
-    got = reference_tests("test_byzantine_actors.py", leave_out=UNPORTED)
+    check_matrices(CASES, LEFT_OUT)
+    got = reference_tests("test_byzantine_actors.py")
     assert got["test_byzantine_actors__test_vote_forger_is_attributed_"
                "shunned_and_shed"].__globals__["ByzantineActor"].__module__ \
         == "smartbft_tpu_torch.testing.byzantine"

@@ -3,17 +3,19 @@
 group commit, the codec, the in-process network, the Prometheus lint and
 RTT-derived forwarding, compiled against ``smartbft_tpu_torch`` by
 :mod:`torch_reference` and collected here as items of their own
-(``<file stem>__<case>``), under an exact count guard.  Left out: the
-socket-transport RTT case (``net.transport`` is not ported)."""
+(``<file stem>__<case>``), under an exact count guard, each case under
+a time limit of its own (the RTT case runs a socket transport)."""
 
-from torch_reference import check_matrices, reference_tests
+from torch_reference import case_time_limit, check_matrices, reference_tests
 
 CASES = {"test_core_units.py": 22, "test_controller_units.py": 25,
          "test_view_units.py": 26, "test_viewchanger_units.py": 27,
          "test_wal.py": 14, "test_wal_group_commit.py": 13,
          "test_codec.py": 9, "test_network.py": 11, "test_promlint.py": 5,
-         "test_rtt_forward.py": 5}
-LEFT_OUT: dict = {"test_rtt_forward.py": ["test_transport_rtt_ewma_and_envelope"]}
+         "test_rtt_forward.py": 6}
+LEFT_OUT: dict = {}
+
+time_limit = case_time_limit(60)
 
 for _file in CASES:
     globals().update(reference_tests(_file))

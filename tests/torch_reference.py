@@ -18,12 +18,13 @@ What the reference files share resolves to port copies too:
   port-compiled copy of that file.
 
 A statement is left out when it needs what the port does not have: a
-module (``net.transport``, ``net.launch``, ``parallel``, ...), a name
+module (``parallel``, ``obs.benchschema``, ...), a name
 such a module would give (``JaxVerifyEngine``), a file outside ``tests/``
 (``benchmarks/*.py``), or a top-level name left out for one of these
 reasons.  So a missing name drops only the helpers and cases that use
 it.  Cases marked slow are left out as well.  :func:`dropped_tests` names
 each case left out, with its reason, so a guard can hold the list exact.
+:func:`case_time_limit` gives a file a time limit on every case.
 """
 
 from __future__ import annotations
@@ -34,8 +35,11 @@ import importlib.abc
 import importlib.util
 import pathlib
 import re
+import signal
 import sys
+import threading
 
+import pytest
 from _pytest.assertion.rewrite import rewrite_asserts
 
 TESTS = pathlib.Path(__file__).resolve().parent
@@ -303,3 +307,30 @@ def check_matrices(cases: dict, left_out: dict, leave_out: dict = None):
         for fn in found.values():
             assert fn.__module__.startswith(PKG + ".")
             assert not jax_globals(fn), fn.__name__
+
+
+def case_time_limit(seconds: int = 60):
+    """An autouse fixture that fails a case still running after
+    ``seconds`` (``SIGALRM``; the suite runs without pytest-timeout), so
+    a case that hangs, as a socket close did, fails on its own instead
+    of holding its worker until the run is cut.  Bind it to a name in a
+    test file's globals to arm it for every case of that file."""
+
+    @pytest.fixture(autouse=True)
+    def _case_time_limit(request):
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError("the case time limit needs the main thread")
+
+        def expire(signum, frame):
+            pytest.fail(f"{request.node.nodeid} still running after "
+                        f"{seconds} s", pytrace=False)
+
+        old = signal.signal(signal.SIGALRM, expire)
+        signal.alarm(seconds)
+        try:
+            yield
+        finally:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, old)
+
+    return _case_time_limit
