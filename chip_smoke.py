@@ -187,26 +187,59 @@ Phases, one JSON line each; any failure exits non-zero:
                 with code 0 (a replica still running at ``stop()``'s
                 10 s deadline is SIGKILLed).  ``sockets_busy`` follows
                 the kernels line.
-13. kernels   — one line with the five kernels: launches in their cell,
+13. mesh      — the multi-device verify plane (``smartbft_tpu_torch.
+                parallel``) at D = ``torch.cuda.device_count()`` cards.
+                Parity stage: the JAX package's mesh-bench wave (3
+                signers, 23 items, every 5th forged, each message
+                signed by all three) through ``MeshVerifyEngine(devices=
+                D)`` and ``QuorumMeshVerifyEngine(devices=D)`` against
+                ``TorchVerifyEngine`` for P-256 on the comb route, P-256
+                on the generic route (every engine's comb registries
+                filled first), Ed25519 and BLS12-381: verdicts equal bit
+                for bit and equal the scheme's host verify, the 2D
+                counts the host's distinct valid votes a message, its
+                decisions ``count >= _quorum_threshold()`` of a
+                4-replica keyring, and each engine on the route's
+                kernel only.  Then cells M1, M2 and M0, each cell G's
+                deployment (4 shards of n = 16, 8 decisions, batch 500,
+                depth 16, paced 0.03 s, hold 0.25 s) with no engine
+                given, so ``ShardedCluster(crypto="p256")`` builds its
+                own ``TorchVerifyEngine`` and the replicas' knobs
+                graduate the shared coalescer at start.  M1:
+                ``verify_mesh_devices = D``, topology "1d": the plane
+                must be the port's ``MeshVerifyEngine`` of D devices, no
+                downgrade, no fallback engine, a per-device fill.  M2:
+                the same in "2d": ``QuorumMeshVerifyEngine`` with quorum
+                steps run, and every launch's counts and decisions held
+                after the run to OpenSSL's verdicts.  M0:
+                ``verify_mesh_devices = D + 1``: exactly one counted
+                downgrade, ``TorchVerifyEngine`` kept, every shard
+                commits.  Each cell zeroes the five counters once the
+                graduated engine is warm, passes ``read_cell`` for the
+                comb kernel and the mux's checks, and prints tx/s,
+                launches, the kernel's rungs (lanes a card) and the
+                logical ones, fill and its ``mesh`` block;
+                ``mesh_busy`` follows the kernels line.
+14. kernels   — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
                 also carries its launches, lanes and rungs in cells F1,
-                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1 and T2
-                (``cells``), and is timed at their rungs too.
-14. generic_groups — the generic P-256 kernel at each group size (threads
+                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1, T2, M1, M2
+                and M0 (``cells``), and is timed at their rungs too.
+15. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-15. ed_generic_groups — the same for the generic Ed25519 kernel: the
+16. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-16. comb_groups — the same for the P-256 comb kernel: the library (8
+17. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-17. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+18. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-18. bls_groups — the same for the BLS12-381 pairing kernel: the library
+19. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -1164,10 +1197,16 @@ def warm_cluster(engine, cluster, what: str) -> None:
     """A front-door cluster's set-up on ``engine``: it must have taken the
     engine, every shard's ring of keys is registered and every pad rung
     launched once, so no cell's window carries a table build."""
-    from smartbft_tpu_torch.crypto import p256
-
     if cluster.engine is not engine:
         fail(f"{what}: the cluster did not take the CUDA engine")
+    warm_engine(engine, cluster)
+
+
+def warm_engine(engine, cluster) -> None:
+    """Register every shard's ring of keys with ``engine`` (each device's
+    comb registry) and launch every pad rung once."""
+    from smartbft_tpu_torch.crypto import p256
+
     for ring in cluster._rings.values():
         engine.prewarm_keys(ring[1].public_keys.values())
     ring = cluster._rings[0][1]
@@ -1180,7 +1219,7 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
                       batch: int, pipeline: int, wal_root: str, tag: str,
                       hold: float = 0.0, pace: float = 0.0,
                       control_interval=None, overrides=None,
-                      at_decision=None):
+                      at_decision=None, on_engine=None):
     """Sharded mode through its front door: ``ShardedCluster(crypto=
     "p256", engine=engine)`` builds ``shards`` consensus groups of ``n``
     replicas (per-shard keyrings, WALs, ledgers) over one shared dedupe
@@ -1192,6 +1231,14 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     The window ends when every replica of every shard has committed its
     shard's requests.  Returns the run's measurements and the coalescer
     (the caller reads its counters).
+
+    ``engine``: None lets the cluster build its own
+    ``TorchVerifyEngine(scheme=p256)`` on the card, which the replicas'
+    Configuration (``overrides``: ``verify_mesh_devices``) may graduate
+    onto a mesh at start; the coalescer's engine is then warmed after the
+    start, its counters zeroed, and returned as ``"engine"``;
+    ``on_engine(engine)`` is called once it is warm, before the counters
+    are zeroed.
 
     ``hold``: ``Configuration.verify_flush_hold`` of every replica (0, the
     default, for no hold).  ``pace``: seconds slept after each decision
@@ -1224,15 +1271,26 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
         os.path.join(wal_root, tag), shards=shards, n=n, depth=pipeline,
         crypto="p256", engine=engine, window=0.02, config_fn=cfg, seed=13,
         collect_entries=control_interval is not None)
-    warm_cluster(engine, cluster, f"sharded {tag}")
+    own_engine = engine is None
+    if not own_engine:
+        warm_cluster(engine, cluster, f"sharded {tag}")
     for s in range(shards):
         cluster.client_for_shard(s, 3)
-    zero_launch_counters(engine)
+    if not own_engine:
+        zero_launch_counters(engine)
     driver = WallClockDriver(cluster.scheduler, tick_interval=0.01)
     driver.start()
     stop_control, control, hooked, submitted = asyncio.Event(), None, {}, []
     try:
         await cluster.start()
+        if own_engine:
+            # the replicas' knobs have graduated (or kept) the plane's
+            # engine at start: warm it, then count from zero
+            engine = cluster.coalescer.engine
+            warm_engine(engine, cluster)
+            if on_engine is not None:
+                on_engine(engine)
+            zero_launch_counters(engine)
         if control_interval is not None:
             control = asyncio.create_task(run_control_loop(
                 cluster, interval=control_interval, stop=stop_control))
@@ -1293,6 +1351,12 @@ async def run_sharded(engine, shards: int, n: int, decisions: int,
     }
     if control is not None:
         out["control"] = control.snapshot()
+    if own_engine:
+        fallback = cluster.coalescer.fallback_engine
+        out["engine"] = engine
+        out["mesh"] = {**cluster.coalescer.mesh_snapshot(),
+                       "fallback_engine": None if fallback is None
+                       else type(fallback).__name__}
     return out
 
 
@@ -1349,9 +1413,11 @@ async def wait_settled(cluster, delivered: int, what: str,
 
 def zero_launch_counters(engine) -> None:
     """All five launch counters and the engine's stats to 0."""
-    from smartbft_tpu_torch.crypto.provider import VerifyStats
+    from smartbft_tpu_torch.crypto.provider import MeshVerifyStats, VerifyStats
 
-    engine.stats = VerifyStats()
+    st = engine.stats
+    engine.stats = MeshVerifyStats(devices=st.devices, metrics=st.metrics) \
+        if isinstance(st, MeshVerifyStats) else VerifyStats()
     engine.rung_launches.clear()
     engine.route_launches.update(comb=0, generic=0)
     for c in launch_counters().values():
@@ -1433,13 +1499,16 @@ def phase_sharded(wal_root, n=16, batch=500, pipeline=16):
 
 def busy_line(cells, comb_row, phase="sharded_busy"):
     """Device busy of the comb kernel's cells (phases sharded,
-    verify_plane, open_loop, byzantine and sockets): launches at each rung times
-    the comb kernel's ms at that rung from the kernels line, and the idle
-    share of the cell's elapsed time."""
+    verify_plane, open_loop, byzantine, sockets and mesh): launches at
+    each rung times the comb kernel's ms at that rung from the kernels
+    line (a mesh cell's over its cards), and the idle share of the cell's
+    elapsed time."""
     out = {}
     for tag, cell in cells.items():
         busy = sum(k * comb_row["ms_by_rung"][r]
                    for r, k in cell["rung_launches"].items())
+        # a mesh cell's launches spread over its cards: busy a card
+        busy /= cell.get("cards", 1)
         out[tag] = {"busy_ms": round(busy, 3),
                     "idle_pct": round(100.0 * (1.0 - busy / 1e3
                                                / cell["elapsed_s"]), 3),
@@ -1627,6 +1696,236 @@ def phase_verify_plane(wal_root, pace=0.03):
         "g0": g0, "g": g, "v0": v0, "v": v, "k": k,
     })
     return {"g0": g0, "g": g, "v0": v0, "v": v, "k": k}
+
+
+def mixed_wave(scheme, n_signers=3, count=23, forge_every=5,
+               seed=b"mesh-parity"):
+    """The JAX package's mesh-bench parity wave (``benchmarks/mesh.py``'s
+    ``_mixed_wave``): ``count`` items round-robined over ``n_signers``
+    keys, every ``forge_every``-th signature corrupted, ``count`` no
+    device multiple so every width pads.  Here each message is signed by
+    all three signers (a quorum row of the 2D engine)."""
+    keys = [scheme.keygen(seed + b"-%d" % i) for i in range(n_signers)]
+    items = []
+    for i in range(count):
+        sk, pub = keys[i % n_signers]
+        msg = b"mesh-msg-%d" % (i // n_signers)
+        sig = scheme.sign_raw(sk, msg)
+        if i % forge_every == forge_every - 1:
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        items.append(scheme.make_item(msg, sig, pub))
+    return items
+
+
+def distinct_valid_votes(items, verdicts) -> dict:
+    """The host's count of distinct valid votes a message."""
+    tally, seen = {}, set()
+    for it, ok in zip(items, verdicts):
+        tally.setdefault(it[0], 0)
+        if ok and it not in seen:
+            tally[it[0]] += 1
+        seen.add(it)
+    return tally
+
+
+def filler_keys(count: int) -> list:
+    """``count`` distinct P-256 points G, 2G, ... (cheap registry fill)."""
+    from smartbft_tpu_torch.crypto import p256
+
+    g = (p256.GX, p256.GY)
+    pts = [g]
+    while len(pts) < count:
+        pts.append(p256._point_add_int(pts[-1], g))
+    return pts
+
+
+def mesh_parity(devices: int) -> dict:
+    """The parity stage of phase mesh: the mixed wave through
+    ``MeshVerifyEngine(devices=D)`` and ``QuorumMeshVerifyEngine(devices=
+    D)`` against ``TorchVerifyEngine`` on the same card(s), for P-256 on
+    the comb route, P-256 on the generic route (every engine's comb
+    registries filled first), Ed25519 and BLS12-381.  Verdicts must be
+    equal bit for bit and equal the scheme's host verify; the 2D counts
+    must be the host's distinct valid votes a message and its decisions
+    ``count >= _quorum_threshold()`` of a 4-replica keyring."""
+    from smartbft_tpu_torch.crypto import bls12381, ed25519, p256
+    from smartbft_tpu_torch.crypto.provider import (
+        Keyring,
+        P256CryptoProvider,
+        TorchVerifyEngine,
+    )
+    from smartbft_tpu_torch.parallel import (
+        MeshVerifyEngine,
+        QuorumMeshVerifyEngine,
+    )
+
+    quorum = P256CryptoProvider(
+        Keyring.generate([1, 2, 3, 4], seed=b"mesh-quorum")[1])\
+        ._quorum_threshold()
+    out = {"devices": devices, "quorum": quorum, "routes": {}}
+    for route, scheme in (("p256_comb", p256), ("p256_generic", p256),
+                          ("ed25519", ed25519), ("bls12381", bls12381)):
+        items = mixed_wave(scheme)
+        host = [scheme.verify_item(it) for it in items]
+        engines = {"single": TorchVerifyEngine(device="cuda", scheme=scheme),
+                   "mesh_1d": MeshVerifyEngine(devices=devices,
+                                               scheme=scheme),
+                   "mesh_2d": QuorumMeshVerifyEngine(devices=devices,
+                                                     scheme=scheme,
+                                                     quorum=quorum)}
+        if route == "p256_generic":
+            for eng in engines.values():
+                eng.prewarm_keys(filler_keys(128))
+        got = {name: eng.verify(items) for name, eng in engines.items()}
+        if any(v != got["single"] for v in got.values()) \
+                or got["single"] != host:
+            fail(f"mesh parity {route}: verdicts differ: {got}, host {host}")
+        q = engines["mesh_2d"]
+        tally = distinct_valid_votes(items, host)
+        if q.last_counts != tally:
+            fail(f"mesh parity {route}: 2D counts {q.last_counts} are not "
+                 f"the host's distinct valid votes {tally}")
+        if q.last_decided != {m: c >= quorum for m, c in tally.items()}:
+            fail(f"mesh parity {route}: 2D decisions {q.last_decided}")
+        want = "generic" if route in ("p256_generic", "bls12381") else "comb"
+        for name, eng in engines.items():
+            routes = {k: v for k, v in eng.route_launches.items() if v}
+            if set(routes) != {want}:
+                fail(f"mesh parity {route}: {name} took routes {routes}")
+        out["routes"][route] = {
+            "items": len(items), "valid": sum(host),
+            "counts": sorted(tally.values()),
+            "decided": sum(q.last_decided.values()),
+            "psum_steps": q.psum_steps,
+            "mesh_1d_launches": engines["mesh_1d"].route_launches[want],
+            "mesh_2d_launches": q.route_launches[want]}
+    return out
+
+
+def mesh_cell(tag, devices, topology, cards, wal_root, pace=0.03,
+              hold=0.25, shards=4, n=16, decisions=8, batch=500,
+              pipeline=16):
+    """One cell of phase mesh: cell G's deployment (4 shards of n = 16, 8
+    decisions each, batch 500, depth 16, rounds paced ``pace`` s,
+    ``verify_flush_hold = hold``) through :func:`run_sharded` with no
+    engine given, so the cluster builds ``TorchVerifyEngine(scheme=p256)``
+    on the card and every replica's ``verify_mesh_devices = devices`` /
+    ``verify_mesh_topology = topology`` graduate the shared coalescer at
+    start.  Every launch of a 2D engine is recorded and held, after the
+    run, to OpenSSL's verdicts and distinct valid votes a message.  Fails
+    unless every replica of each shard holds one ledger with every
+    request and the cell passes :func:`read_cell` for the comb kernel."""
+    import threading
+
+    from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
+    from smartbft_tpu_torch.parallel import (
+        MeshVerifyEngine,
+        QuorumMeshVerifyEngine,
+    )
+
+    launches, lock = [], threading.Lock()
+
+    def record_launches(engine):
+        if not isinstance(engine, QuorumMeshVerifyEngine):
+            return
+        verify = engine.verify
+
+        def recorded(items):
+            with lock:
+                got = verify(items)
+                launches.append((list(items), got, dict(engine.last_counts),
+                                 dict(engine.last_decided)))
+            return got
+
+        engine.verify = recorded
+
+    run = asyncio.run(run_sharded(
+        None, shards, n, decisions, batch, pipeline, wal_root, tag,
+        hold=hold, pace=pace,
+        overrides={"verify_mesh_devices": devices,
+                   "verify_mesh_topology": topology},
+        on_engine=record_launches))
+    engine = run.pop("engine")
+    for sid, sh in run["per_shard"].items():
+        if sh["committed_min"] < decisions * batch \
+                or sh["ledger_digests"] != 1:
+            fail(f"mesh {tag}: shard {sid} committed {sh['committed_min']} "
+                 f"into {sh['ledger_digests']} ledgers")
+    psum_steps_run = getattr(engine, "psum_steps", 0)
+    run.update(read_cell(engine, "comb", "mesh", tag, run))
+    run.pop("coalescer")
+    mesh = run["mesh"]
+    if mesh["configured_devices"] != devices:
+        fail(f"mesh {tag}: verify_mesh_devices={devices} did not reach the "
+             f"coalescer: {mesh}")
+    want = {"1d": MeshVerifyEngine, "2d": QuorumMeshVerifyEngine}[topology]
+    if devices <= cards:
+        if type(engine) is not want or engine.devices != devices:
+            fail(f"mesh {tag}: the plane runs {type(engine).__name__} "
+                 f"of {getattr(engine, 'devices', 0)} device(s), not a "
+                 f"{topology} mesh of {devices}")
+        if mesh["downgrades"] or mesh["fallback_engine"] is not None:
+            fail(f"mesh {tag}: {mesh['downgrades']} downgrades, fallback "
+                 f"engine {mesh['fallback_engine']}")
+        if len(mesh["device_fill_pct_last"]) != devices:
+            fail(f"mesh {tag}: no per-device fill: {mesh}")
+    else:
+        if type(engine) is not TorchVerifyEngine or mesh["downgrades"] != 1:
+            fail(f"mesh {tag}: a mesh of {devices} on {cards} card(s) must "
+                 f"keep TorchVerifyEngine with one downgrade, got "
+                 f"{type(engine).__name__} and {mesh['downgrades']}")
+    if topology == "2d" and devices <= cards:
+        if not launches or psum_steps_run < 1:
+            fail(f"mesh {tag}: the 2D engine ran no quorum step")
+        for items, got, counts, decided in launches:
+            host = [openssl_verify(it) for it in items]
+            tally = distinct_valid_votes(items, host)
+            if got != host or counts != tally or decided != {
+                    m: c >= engine.quorum for m, c in tally.items()}:
+                fail(f"mesh {tag}: a 2D launch of {len(items)} items "
+                     f"disagrees with the host: counts {counts} vs {tally}")
+        run.update(checked_launches=len(launches), psum_steps=psum_steps_run,
+                   quorum=engine.quorum)
+    # the kernel launches by lanes a card: a mesh launch of rung r is one
+    # launch of r / D lanes on each of the D cards
+    d = getattr(engine, "devices", 0) or 1
+    run.update(cards=d, engine=type(engine).__name__,
+               logical_rung_launches=run["rung_launches"],
+               rung_launches={str(int(r) // d): k * d
+                              for r, k in run["rung_launches"].items()},
+               items_per_launch=round(
+                   run["sigs_verified"] / run["kernel_launches"]["comb"], 1))
+    return run
+
+
+def phase_mesh(wal_root, pace=0.03):
+    """The multi-device verify plane at D = ``torch.cuda.device_count()``
+    (1 on a one-card machine): the parity stage (:func:`mesh_parity`),
+    then cells M1 (``verify_mesh_devices = D``, topology "1d"), M2 (the
+    same, "2d") and M0 (``verify_mesh_devices = D + 1``: a counted
+    downgrade), each cell G's deployment through the knobs."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    parity = mesh_parity(cards)
+    m1 = mesh_cell("m1", cards, "1d", cards, wal_root, pace)
+    m2 = mesh_cell("m2", cards, "2d", cards, wal_root, pace)
+    m0 = mesh_cell("m0", cards + 1, "1d", cards, wal_root, pace)
+    emit({
+        "phase": "mesh", "ok": True, "cards": cards,
+        "deployment": {"shards": 4, "nodes_per_shard": 16,
+                       "request_batch_max_count": 500, "pipeline_depth": 16,
+                       "decisions_per_shard": 8, "pace_s": pace,
+                       "verify_flush_hold": 0.25, "scheme": "p256"},
+        "parity": parity,
+        "cells": {tag: {key: cell.get(key) for key in (
+            "engine", "cards", "tx_per_s", "elapsed_s", "kernel_launches",
+            "launches_per_decision", "logical_rung_launches",
+            "rung_launches", "fill_pct", "items_per_launch", "mesh",
+            "psum_steps", "checked_launches")}
+            for tag, cell in (("m1", m1), ("m2", m2), ("m0", m0))},
+    })
+    return {"m1": m1, "m2": m2, "m0": m0}
 
 
 def openloop_config(s, i):
@@ -2311,7 +2610,7 @@ def phase_kernels(recs, cells, clock_hz, sms, sharded):
     the bound; the pairing kernel's row last (:func:`bls_kernel_row`).
     ``recs``: the kernel phases' records by kernel name; ``cells``: the
     e2e cells by kernel name; ``sharded``: the cells of phases sharded,
-    verify_plane, open_loop, byzantine and sockets by tag, whose comb
+    verify_plane, open_loop, byzantine, sockets and mesh by tag, whose comb
     launches and rungs the comb kernel's row carries too."""
     import torch
 
@@ -2546,13 +2845,16 @@ def main() -> int:
         loads = timed("open_loop", phase_open_loop, wal_root)
         byz = timed("byzantine", phase_byzantine, wal_root)
         socks = timed("sockets", phase_sockets, wal_root)
+        meshes = timed("mesh", phase_mesh, wal_root)
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
-                      {**sharded, **plane, **loads, **byz, **socks})
+                      {**sharded, **plane, **loads, **byz, **socks,
+                       **meshes})
         busy_line(sharded, rows[0])
         busy_line(plane, rows[0], "verify_plane_busy")
         busy_line(loads, rows[0], "open_loop_busy")
         busy_line(byz, rows[0], "byzantine_busy")
         busy_line(socks, rows[0], "sockets_busy")
+        busy_line(meshes, rows[0], "mesh_busy")
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

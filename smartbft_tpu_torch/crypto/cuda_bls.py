@@ -537,11 +537,14 @@ def launch(name: str, sig_x, sig_y, hm_x, hm_y, pk_x0, pk_x1, pk_y0, pk_y1,
     out = torch.empty(bsz, dtype=torch.int32, device=dev)
     if bsz == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib(name).smartbft_bls_verify(
-        *(a.data_ptr() for a in vals), ok.data_ptr(),
-        device_program(dev).data_ptr(), bls_stages.program().nslots,
-        device_table(dev).data_ptr(), out.data_ptr(), bsz, stream)
+    # the launch goes to the current device: make it the tensors'
+    # (a worker thread starts on device 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib(name).smartbft_bls_verify(
+            *(a.data_ptr() for a in vals), ok.data_ptr(),
+            device_program(dev).data_ptr(), bls_stages.program().nslots,
+            device_table(dev).data_ptr(), out.data_ptr(), bsz, stream)
     csrc.check(rc, "bls_verify")
     return out
 

@@ -232,11 +232,14 @@ def launch(lib: str, e, r, s, kidx, gtab, qtab) -> torch.Tensor:
     out = torch.empty(bsz, dtype=torch.int32, device=dev)
     if bsz == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib(lib).smartbft_comb_verify(
-        e.data_ptr(), r.data_ptr(), s.data_ptr(), kidx.data_ptr(),
-        gtab.data_ptr(), qtab.data_ptr(), qtab.shape[0], out.data_ptr(),
-        bsz, stream)
+    # the launch goes to the current device: make it the tensors'
+    # (a worker thread starts on device 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib(lib).smartbft_comb_verify(
+            e.data_ptr(), r.data_ptr(), s.data_ptr(), kidx.data_ptr(),
+            gtab.data_ptr(), qtab.data_ptr(), qtab.shape[0], out.data_ptr(),
+            bsz, stream)
     csrc.check(rc, "comb_verify")
     return out
 

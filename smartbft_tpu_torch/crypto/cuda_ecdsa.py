@@ -285,10 +285,13 @@ def launch(lib: str, e, r, s, qx, qy) -> torch.Tensor:
     out = torch.empty(bsz, dtype=torch.int32, device=dev)
     if bsz == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib(lib).smartbft_ecdsa_verify(
-        e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(),
-        qy.data_ptr(), out.data_ptr(), bsz, stream)
+    # the launch goes to the current device: make it the tensors'
+    # (a worker thread starts on device 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib(lib).smartbft_ecdsa_verify(
+            e.data_ptr(), r.data_ptr(), s.data_ptr(), qx.data_ptr(),
+            qy.data_ptr(), out.data_ptr(), bsz, stream)
     csrc.check(rc, "ecdsa_verify")
     return out
 

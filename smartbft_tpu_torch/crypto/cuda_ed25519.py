@@ -241,11 +241,14 @@ def launch(lib: str, s, h, rx, ry, ok, kidx, btab, qtab) -> torch.Tensor:
     out = torch.empty(bsz, dtype=torch.int32, device=dev)
     if bsz == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib(lib).smartbft_ed_comb_verify(
-        s.data_ptr(), h.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-        ok.data_ptr(), kidx.data_ptr(), btab.data_ptr(), qtab.data_ptr(),
-        qtab.shape[0], out.data_ptr(), bsz, stream)
+    # the launch goes to the current device: make it the tensors'
+    # (a worker thread starts on device 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib(lib).smartbft_ed_comb_verify(
+            s.data_ptr(), h.data_ptr(), rx.data_ptr(), ry.data_ptr(),
+            ok.data_ptr(), kidx.data_ptr(), btab.data_ptr(), qtab.data_ptr(),
+            qtab.shape[0], out.data_ptr(), bsz, stream)
     csrc.check(rc, "ed_comb_verify")
     return out
 

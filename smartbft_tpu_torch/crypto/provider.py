@@ -26,6 +26,7 @@ Wire format of a consenter signature (Signature.msg): canonical encoding of
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import random
 import threading
@@ -129,6 +130,64 @@ class VerifyStats:
         if not self.sigs_verified:
             return 0.0
         return 1e6 * self.total_kernel_seconds / self.sigs_verified
+
+
+@dataclass
+class MeshVerifyStats(VerifyStats):
+    """VerifyStats for a device-mesh engine: every record also accounts
+    pad waste and per-device launch fill (a batch-axis-partitioned wave
+    places its items contiguously, so padding lands on the TAIL devices —
+    the per-device fill vector makes that visible instead of hiding it in
+    the overall mean).  Exported through ``MeshVerifyEngine.mesh_snapshot``
+    into the coalescer's ``mesh_snapshot``."""
+
+    devices: int = 1
+    pad_slots: int = 0
+    launches_spanning_all_devices: int = 0
+    last_device_fill_pct: list = field(default_factory=list)
+
+    def record(self, n_sigs: int, n_slots: int, seconds: float,
+               per_device: Optional[list] = None) -> None:
+        """``per_device``: the engine's actual per-device item counts for
+        this launch (the strided-placement engine reports them exactly);
+        None falls back to the contiguous-placement model (items fill
+        devices front to back, padding on the tail)."""
+        super().record(n_sigs, n_slots, seconds)
+        pad = max(n_slots - n_sigs, 0)
+        self.pad_slots += pad
+        per_dev = max(1, n_slots // max(1, self.devices))
+        if per_device is not None:
+            fills = [round(100.0 * got / per_dev, 1) for got in per_device]
+        else:
+            fills = []
+            for d in range(self.devices):
+                got = min(max(n_sigs - d * per_dev, 0), per_dev)
+                fills.append(round(100.0 * got / per_dev, 1))
+        self.last_device_fill_pct = fills
+        if fills and min(fills) > 0:
+            self.launches_spanning_all_devices += 1
+        m = self.metrics
+        if m is not None and hasattr(m, "count_mesh_launches"):
+            m.count_mesh_launches.add(1)
+            m.count_mesh_pad_slots.add(pad)
+            if fills:
+                m.mesh_device_fill_percent.observe(min(fills))
+
+    def mesh_block(self, capacity: int = 0) -> dict:
+        """The JSON-able engine half of the ``mesh`` block."""
+        return {
+            "devices": self.devices,
+            "launches": self.launches,
+            "items": self.sigs_verified,
+            "slots": self.slots_used,
+            "fill_pct": round(self.batch_fill_pct, 1),
+            "pad_slots": self.pad_slots,
+            "pad_waste_pct": round(100.0 * self.pad_slots / self.slots_used, 1)
+            if self.slots_used else 0.0,
+            "capacity_items_per_launch": int(capacity),
+            "device_fill_pct_last": list(self.last_device_fill_pct),
+            "launches_spanning_all_devices": self.launches_spanning_all_devices,
+        }
 
 
 class LaunchTimeout(Exception):
@@ -410,6 +469,14 @@ _ROUTES = {p256: (CombVerifier, p256.verify_bytes, ecdsa_verify),
            bls12381: (None, verify_words, bls_verify)}
 
 
+def on_device(device):
+    """The context a launch on ``device`` runs in: that card made current
+    (a kernel launches on the current device), nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class TorchVerifyEngine:
     """Padded, batched signature verification on the CUDA card.
 
@@ -427,6 +494,8 @@ class TorchVerifyEngine:
     ``device="cuda"`` is the default and raises when no card is visible;
     ``device="cpu"`` runs the kernels' plain-torch versions (tests).
     Thread-safe: the coalescer calls :meth:`verify` from worker threads.
+    The mesh engines of :mod:`smartbft_tpu_torch.parallel` are this engine
+    over several devices, one comb verifier (registry and tables) each.
     """
 
     preferred_coalesce_window = 0.002  # batched engine: wait for fan-in
@@ -438,18 +507,31 @@ class TorchVerifyEngine:
         """``pad_sizes``: the top rung bounds how much of a large cluster's
         quorum wave one launch absorbs (n=128 -> 10880 signatures).
         ``scheme``: :mod:`.p256`, :mod:`.ed25519` or :mod:`.bls12381`."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchVerifyEngine: CUDA is not available; pass "
-                "device='cpu' to run the plain-torch versions")
-        if scheme not in _ROUTES:
-            raise ValueError(f"TorchVerifyEngine: no kernels for scheme "
+        self._init_plane([torch.device(device)], pad_sizes, scheme, metrics,
+                         _ROUTES.get(scheme))
+
+    def _init_plane(self, devices, pad_sizes, scheme, metrics, route) -> None:
+        """Set the engine up over ``devices`` (the first one is
+        :attr:`device`) with ``route``: (comb verifier class or None,
+        generic host marshalling, generic kernel)."""
+        if route is None:
+            raise ValueError(f"{type(self).__name__}: no kernels for scheme "
                              f"{getattr(scheme, '__name__', scheme)}")
+        if any(d.type == "cuda" for d in devices) \
+                and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: CUDA is not available; pass "
+                "device='cpu' to run the plain-torch versions")
+        self.device = devices[0]
+        self._devices = list(devices)
         self.scheme = scheme
-        comb_cls, self._generic_inputs, self._generic_kernel = _ROUTES[scheme]
+        comb_cls, self._generic_inputs, self._generic_kernel = route
         self.pad_sizes = tuple(sorted(pad_sizes))
-        self._comb = comb_cls(self.device) if comb_cls is not None else None
+        #: one comb verifier a device (its own registry, tables uploaded
+        #: to its own device); None for a scheme without a comb route
+        self._combs = [comb_cls(d) if comb_cls is not None else None
+                       for d in devices]
+        self._comb = self._combs[0]
         self._lock = threading.Lock()
         self.stats = VerifyStats(metrics=metrics)
         #: launches per pad rung, and per kernel route ("comb"/"generic")
@@ -474,10 +556,12 @@ class TorchVerifyEngine:
         return out
 
     def prewarm_keys(self, pubs) -> None:
-        """Register a known key set (e.g. the whole keyring) with the comb
-        registry up front (no registry for BLS12-381)."""
-        if self._comb is not None:
-            self._comb.prewarm_keys(pubs)
+        """Register a known key set (e.g. the whole keyring) with every
+        device's comb registry up front (no registry for BLS12-381)."""
+        pubs = list(pubs)
+        for comb in self._combs:
+            if comb is not None:
+                comb.prewarm_keys(pubs)
 
     def prewarm_shapes(self, item, sizes: Optional[Sequence[int]] = None) -> None:
         """Run every pad rung once with copies of ``item`` (a verify item
@@ -486,24 +570,41 @@ class TorchVerifyEngine:
         for size in (self.pad_sizes if sizes is None else sizes):
             self.verify([item] * size)
 
+    def _launch(self, d: int, items, size: int):
+        """One kernel launch on device ``d`` of the plane: ``items``
+        zero-padded to ``size`` lanes, on the comb route when the device's
+        registry takes every key, else the generic one.  Returns the
+        (len(items),) mask on the device, not yet read, and the route."""
+        comb = self._combs[d]
+        mask = comb.verify(items, size) if comb is not None else None
+        if mask is not None:
+            return mask, "comb"
+        mask = _generic_launch(self._generic_kernel,
+                               self._generic_inputs(items), size,
+                               self._devices[d])
+        return mask[:len(items)], "generic"
+
+    def _record(self, n: int, size: int, seconds: float, routes: list,
+                per_device: Optional[list] = None) -> None:
+        """Account one logical launch of ``size`` slots for ``n`` items,
+        made of the device launches whose routes are ``routes``
+        (``per_device``: its real items by device, for mesh stats)."""
+        with self._lock:
+            if per_device is None:
+                self.stats.record(n, size, seconds)
+            else:
+                self.stats.record(n, size, seconds, per_device=per_device)
+            self.rung_launches[size] = self.rung_launches.get(size, 0) + 1
+            for route in routes:
+                self.route_launches[route] += 1
+
     def _verify_chunk(self, items) -> list[bool]:
         n = len(items)
         size = self._pad_to(n)
         t0 = time.perf_counter()
-        mask = (self._comb.verify(items, size)
-                if self._comb is not None else None)
-        route = "comb"
-        if mask is None:
-            route = "generic"
-            mask = _generic_launch(self._generic_kernel,
-                                   self._generic_inputs(items), size,
-                                   self.device)[:n]
+        mask, route = self._launch(0, items, size)
         out = [bool(v) for v in mask.cpu().tolist()]  # waits for the kernel
-        dt = time.perf_counter() - t0
-        with self._lock:
-            self.stats.record(n, size, dt)
-            self.rung_launches[size] = self.rung_launches.get(size, 0) + 1
-            self.route_launches[route] += 1
+        self._record(n, size, time.perf_counter() - t0, [route])
         return out
 
 
@@ -595,6 +696,9 @@ class AsyncBatchCoalescer:
         self._tag_rates = TagRateTracker(default_gap=max(window, 0.001))
         self.mesh_configured = 0   # Configuration.verify_mesh_devices wired
         self.mesh_downgrades = 0   # loud unbuildable-mesh downgrades
+        #: (width, topology) of the last downgrade: a colocated replica
+        #: wiring the same unbuildable mesh counts no second one
+        self.mesh_downgraded_for: Optional[tuple] = None
         #: flight recorder (obs.TraceRecorder; nop singleton when tracing
         #: is off) — verify enqueue/hold/launch spans + breaker
         #: transitions, correlated by a per-coalescer launch id.  Shared
@@ -749,16 +853,34 @@ class AsyncBatchCoalescer:
         return self.shard_stats.snapshot()
 
     def mesh_snapshot(self) -> dict:
-        """Which verify plane ran, under the JAX package's keys: the port
-        has no mesh engine yet, so always one device, with the configured
-        width and the counted downgrades beside it, so a run configured for
-        a mesh is never mistaken for one that had it.  ``hold`` is the
-        occupancy-aware flush gate's accounting: every hold it took, its
-        cost, and its depth payoff."""
-        return {"enabled": False, "devices": 1,
-                "configured_devices": self.mesh_configured,
-                "downgrades": self.mesh_downgrades, "topology": "1d",
-                "hold": self.hold_stats.snapshot(self.hold)}
+        """The ``mesh`` block: which verify plane ran (single device or an
+        N-device mesh), per-launch fill per device, pad waste, and the
+        loud-downgrade count — so a run measured on a downgraded
+        single-device plane is never mistaken for a mesh run.
+        ``shard_map_available`` keeps the JAX package's key: the port's
+        quorum step needs no optional API, so it is always True.  ``hold``
+        is the occupancy-aware flush gate's accounting: every hold it
+        took, its cost, and its depth payoff."""
+        eng = self.engine
+        devices = int(getattr(eng, "devices", 0))
+        out = {
+            "enabled": devices > 0,
+            "devices": devices if devices > 0 else 1,
+            "configured_devices": self.mesh_configured,
+            "downgrades": self.mesh_downgrades,
+            "topology": getattr(eng, "topology", "1d"),
+            "hold": self.hold_stats.snapshot(self.hold),
+        }
+        from ..parallel.engine import shard_map_available
+
+        out["shard_map_available"] = shard_map_available()
+        snap = getattr(eng, "mesh_snapshot", None)
+        if snap is not None:
+            try:
+                out.update(snap())
+            except Exception:  # noqa: BLE001 — a stats hiccup must not
+                pass           # poison a snapshot
+        return out
 
     async def submit(self, items, tag=None) -> list[bool]:
         """``tag``: opaque attribution label (the submitter's shard id in
@@ -1340,33 +1462,120 @@ class CryptoProvider:
             policy=policy, fallback_engine=fallback_engine, metrics=metrics
         )
 
+    def _quorum_threshold(self) -> int:
+        """ceil((n+f+1)/2) over this keyring's membership — the quorum
+        the 2D engine's summed vote counts decide against (the same
+        expression every View uses; verdicts do NOT depend on it)."""
+        n = len(self.keyring.public_keys)
+        f = (n - 1) // 3
+        return (n + f + 2) // 2
+
     def configure_verify_mesh(self, devices: int, metrics=None,
                               topology: str = "1d") -> None:
-        """The ``Configuration.verify_mesh_devices`` knob, wired by
-        ``Consensus._wire_verify_plane``.  The port has no mesh engine yet,
-        so any width above 0 takes the JAX package's degraded mode for an
-        unbuildable mesh: the current engine stays, LOUDLY, with a counted
-        downgrade (``coalescer.mesh_downgrades`` and
-        ``consensus.tpu.count_mesh_downgrades``)."""
+        """Graduate the coalescer's engine onto an N-device mesh — the
+        ``Configuration.verify_mesh_devices`` knob, wired by
+        ``Consensus._wire_verify_plane`` at start and on every reconfig.
+
+        Idempotent and shared-coalescer-safe: the first provider wired
+        swaps the engine in; colocated providers (sharded mode — S groups,
+        ONE coalescer) see a mesh of the requested width already installed
+        (``devices`` attribute, delegated through fault-injection wrappers)
+        and no-op.  The fault contract then holds per MESH launch: the
+        deadline/retry/breaker machinery wraps ``engine.verify``, so
+        expiry abandons the whole mesh launch and retries re-dispatch it.
+
+        ``topology`` selects the mesh shape (the
+        ``Configuration.verify_mesh_topology`` knob): ``"1d"`` (default)
+        is the batch-axis :class:`~smartbft_tpu_torch.parallel.
+        MeshVerifyEngine`; ``"2d"`` graduates onto the seq×vote
+        :class:`~smartbft_tpu_torch.parallel.QuorumMeshVerifyEngine`, whose
+        per-sequence quorum counts sum across the 'vote' mesh axis on the
+        devices, while per-item verdicts stay bit-identical to the 1D
+        engine.
+
+        **Degraded mode**: when the mesh is unbuildable (fewer visible
+        devices than configured) the current single-device engine stays,
+        LOUDLY, with a counted downgrade (``coalescer.mesh_downgrades`` +
+        ``consensus.tpu.count_mesh_downgrades``), once per shared plane
+        and requested (width, topology) — a mis-provisioned host serves at
+        reduced width instead of dying.  Unlike the JAX package, no host
+        fallback engine is installed on graduation: only a caller's
+        explicit ``fallback_engine`` may take a device wave."""
         if devices <= 0:
             return
         co = self._coalescer
         co.mesh_configured = int(devices)
-        # the coalescer's own (shared) metrics bundle first, as for the
-        # fault policy
+        # prefer the coalescer's own metrics bundle (the shared one every
+        # provider feeds) over a caller-supplied per-node bundle; fill the
+        # unset slot like configure_fault_policy so later wirings and the
+        # downgrade counter read the same bundle
         if metrics is not None and co.metrics is None:
             co.configure(metrics=metrics)
         metrics = co.metrics if co.metrics is not None else metrics
-        co.mesh_downgrades += 1
-        if metrics is not None and hasattr(metrics, "count_mesh_downgrades"):
-            metrics.count_mesh_downgrades.add(1)
-        logging.getLogger("smartbft_tpu_torch.crypto").warning(
-            "verify mesh UNBUILDABLE (verify mesh wants %d device(s) in a "
-            "%s topology; the port has no mesh engine yet); DOWNGRADED to "
-            "the single-device %s (downgrade %d counted)",
-            int(devices), topology, type(co.engine).__name__,
-            co.mesh_downgrades,
+        current = co.engine
+        if int(getattr(current, "devices", 0)) == int(devices) \
+                and getattr(current, "topology", "1d") == topology:
+            self.engine = current
+            return  # already this mesh (possibly FaultyEngine-wrapped)
+        if co.mesh_downgraded_for == (int(devices), topology):
+            return  # this plane already downgraded this very mesh
+        from ..parallel.engine import (
+            MeshUnavailable,
+            MeshVerifyEngine,
+            QuorumMeshVerifyEngine,
         )
+
+        try:
+            if topology == "2d":
+                engine = QuorumMeshVerifyEngine(
+                    devices=int(devices), scheme=self.scheme,
+                    quorum=self._quorum_threshold(), metrics=metrics,
+                )
+            else:
+                # the current engine donates its pad ladder ONLY when it
+                # actually carries a batch ladder: a 2D engine's
+                # pad_sizes is the single seq_tile*vote_tile rung, and
+                # inheriting it on a 2d->1d reconfig would silently cap
+                # the rebuilt 1D mesh far below the derived
+                # MESH_PER_DEVICE_LANES ladder
+                donor = None if getattr(current, "topology", "1d") == "2d" \
+                    else getattr(current, "pad_sizes", None)
+                engine = MeshVerifyEngine(
+                    devices=int(devices), scheme=self.scheme,
+                    pad_sizes=donor, metrics=metrics,
+                )
+        except MeshUnavailable as exc:
+            co.mesh_downgrades += 1
+            co.mesh_downgraded_for = (int(devices), topology)
+            if metrics is not None and hasattr(metrics, "count_mesh_downgrades"):
+                metrics.count_mesh_downgrades.add(1)
+            logging.getLogger("smartbft_tpu_torch.crypto").warning(
+                "verify mesh UNBUILDABLE (%s); DOWNGRADED to the "
+                "single-device %s (downgrade %d counted)",
+                exc, type(current).__name__, co.mesh_downgrades,
+            )
+            return
+        co.mesh_downgraded_for = None
+        inner = getattr(current, "inner", None)
+        if inner is not None:
+            # a fault-injection wrapper (testing.engine_faults.FaultyEngine)
+            # around a single-device engine: graduate INSIDE it — swapping
+            # the wrapper out would silently disconnect chaos fault
+            # injection from the live plane
+            current.inner = engine
+            current.scheme = engine.scheme
+            current.pad_sizes = engine.pad_sizes
+            current.devices = engine.devices
+            current.topology = engine.topology
+            engine = current
+        else:
+            co.engine = engine
+        # one coalesced flush should be able to fill the mesh's largest
+        # launch — a smaller cap would split waves and waste the new width
+        co.max_batch = max(co.max_batch, engine.pad_sizes[-1])
+        if metrics is not None and hasattr(metrics, "mesh_devices"):
+            metrics.mesh_devices.set(float(engine.devices))
+        self.engine = engine
 
     def configure_flush_hold(self, hold: Optional[float],
                              explicit: bool = False) -> None:

@@ -5,7 +5,9 @@ Each ``*.cu`` source here is compiled by ``nvcc`` for Hopper
 with a plain C interface, and loaded with :mod:`ctypes`.  The sources
 include no PyTorch header, so a build takes seconds.  Builds happen at
 first use, never at import, into ``smartbft_tpu_torch/_build/cuda``
-(git-ignored); all sources compile in parallel, one ``nvcc`` each.
+(git-ignored; ``SMARTBFT_TORCH_BUILD_DIR`` moves it, see
+:func:`smartbft_tpu_torch.utils.torchenv.build_dir`); all sources compile in parallel, one
+``nvcc`` each.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -20,8 +22,10 @@ import subprocess
 import threading
 import time
 
+from ..utils.torchenv import build_dir
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
-BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "cuda")
+BUILD_DIR = build_dir()
 #: kernel library name -> its source in this directory
 SOURCES = {"cuda_comb": "cuda_comb.cu", "cuda_ecdsa": "cuda_ecdsa.cu",
            "cuda_ed25519": "cuda_ed25519.cu", "cuda_eddsa": "cuda_eddsa.cu",

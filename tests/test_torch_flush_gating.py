@@ -6,14 +6,14 @@ packages' ``TagRateTracker`` (notes and ``any_imminent`` queries, through
 the eviction sweep), ``AsyncBatchCoalescer._rung_exact``,
 ``configure_hold``'s precedence and ``FlushHoldStats.snapshot``, with
 identical answers.  Then the reference's own cases of
-``tests/test_flush_gating.py`` that need no mesh (tracker semantics, the
-knob's validation and mirror, precedence, the live sharded wiring),
-compiled against the port by :mod:`torch_reference`.  Last, the
-reference's mesh cases whose behaviour does not depend on the mesh, on a
-single-device CPU engine with the same pad ladder (:class:`PaddedToyEngine`:
-one call of the toy scheme's torch kernel per rung).  The reference's
-gated-vs-ungated launch count on an 8-device mesh waits for the port's
-mesh engine.
+``tests/test_flush_gating.py``, all eleven, compiled against the port by
+:mod:`torch_reference`: the seven that build an 8-device toy
+``MeshVerifyEngine`` run on 8 virtual CPU devices
+(``torchenv.force_cpu``), set for this module and put back after it.
+Last, six of those mesh cases again on a single-device CPU engine with the
+same pad ladder (:class:`PaddedToyEngine`: one call of the toy scheme's
+torch kernel per rung), so the hold's behaviour is pinned without the
+mesh too.
 """
 
 import asyncio
@@ -33,7 +33,7 @@ from smartbft_tpu_torch.crypto.provider import (
 from smartbft_tpu_torch.metrics import InMemoryProvider, TPUCryptoMetrics
 from smartbft_tpu_torch.testing import toy_scheme
 from smartbft_tpu_torch.testing.engine_faults import FaultyEngine
-from torch_reference import check_matrices, reference_tests
+from torch_reference import check_matrices, reference_tests, virtual_devices
 
 PACKAGES = (j_provider, t_provider)
 
@@ -150,23 +150,17 @@ def test_flush_hold_stats_snapshot_matches_the_jax_package(seed):
 
 # ------------------------------------------------- the reference's own cases
 
-CASES = {"test_flush_gating.py": 4}
-LEFT_OUT = {"test_flush_gating.py": sorted([
-    "test_gated_mesh_deepens_waves_fewer_launches_than_ungated_control",
-    "test_hold_decisions_counted_in_metrics",
-    "test_rung_exact_wave_flushes_without_waiting_out_the_hold",
-    "test_hold_deadline_bounds_latency",
-    "test_breaker_open_bypasses_hold_host_fallback_does_not_wait",
-    "test_launch_deadline_fires_on_a_wave_that_was_held",
-    "test_held_wave_survives_mid_hold_device_down"])}
+_virtual_devices = virtual_devices(8)
+
+CASES = {"test_flush_gating.py": 11}
+LEFT_OUT: dict = {}
 
 globals().update(reference_tests("test_flush_gating.py"))
 
 
 def test_reference_cases_are_whole_and_ported():
-    """The four cases that build no mesh run as they are; the seven that
-    build ``MeshVerifyEngine`` (``warm_mesh``) are left out, six of them
-    ported below."""
+    """All eleven cases run, the seven that build ``MeshVerifyEngine``
+    (``warm_mesh``) on the port's mesh over 8 virtual CPU devices."""
     check_matrices(CASES, LEFT_OUT)
 
 

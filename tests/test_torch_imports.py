@@ -63,6 +63,15 @@ def test_scan_covers_the_control_plane():
             "control/policy.py"} <= have
 
 
+def test_scan_covers_the_mesh_plane():
+    """The multi-device verify plane and its device helpers, under the
+    JAX package's names (``utils/torchenv.py`` in place of
+    ``utils/jaxenv.py``)."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/engine.py",
+            "utils/torchenv.py"} <= have
+
+
 def test_importing_the_port_loads_no_jax():
     import subprocess
     import sys

@@ -30,6 +30,11 @@ from smartbft_tpu_torch.crypto.provider import (
 )
 from smartbft_tpu_torch.messages import Proposal, Signature
 from smartbft_tpu_torch.types import VerifyPlaneDown
+from torch_reference import virtual_devices
+
+# 8 virtual CPU devices for the mesh knob's cases, as the JAX package has
+# through tests/conftest.py; the previous device list comes back after
+_virtual_devices = virtual_devices(8)
 
 # small plain-torch tensors gain nothing from intra-op threads, and the
 # suite runs in parallel worker processes
@@ -305,8 +310,8 @@ def test_ed25519_prewarm_runs_every_requested_rung():
 
 
 # ---------------------------------------------------------------------------
-# Configuration knobs the port does not serve yet: degraded loudly, as the
-# JAX package degrades an unbuildable mesh
+# Configuration knobs of the verify plane: the mesh width and the flush
+# hold, wired through each package's Configuration
 # ---------------------------------------------------------------------------
 
 
@@ -366,3 +371,34 @@ def test_a_verify_flush_hold_is_logged_not_dropped():
         app, provider = _wired_replica(pkg, verify_flush_hold=0.0)
         assert provider.coalescer.hold == 0.0
         assert not app.logger.contains("flush-hold")
+
+
+@pytest.mark.parametrize("devices", [1, 8])
+@pytest.mark.parametrize("topology", ["1d", "2d"])
+def test_a_verify_mesh_the_host_has_graduates_in_both_packages(devices,
+                                                               topology):
+    """verify_mesh_devices=1 and 8 on the 8 virtual devices: both
+    packages swap the replica's engine for their mesh engine of that
+    width and topology, count no downgrade and report the same mesh
+    block; only the JAX package installs a host fallback engine."""
+    blocks = {}
+    for pkg in ("smartbft_tpu", "smartbft_tpu_torch"):
+        app, provider = _wired_replica(pkg, verify_mesh_devices=devices,
+                                       verify_mesh_topology=topology)
+        co = provider.coalescer
+        parallel = importlib.import_module(f"{pkg}.parallel")
+        want = {"1d": parallel.MeshVerifyEngine,
+                "2d": parallel.QuorumMeshVerifyEngine}[topology]
+        assert type(co.engine) is want and provider.engine is co.engine
+        assert co.engine.devices == devices
+        assert app.metrics.provider.gauges[
+            "consensus.tpu.mesh_devices"] == float(devices)
+        blocks[pkg] = co.mesh_snapshot()
+        fallback = co.fallback_engine
+        if pkg == "smartbft_tpu":
+            assert type(fallback).__name__ == "HostVerifyEngine"
+        else:
+            assert fallback is None
+    assert blocks["smartbft_tpu_torch"] == blocks["smartbft_tpu"]
+    assert blocks["smartbft_tpu"]["downgrades"] == 0
+    assert blocks["smartbft_tpu"]["topology"] == topology

@@ -334,3 +334,21 @@ def case_time_limit(seconds: int = 60):
             signal.signal(signal.SIGALRM, old)
 
     return _case_time_limit
+
+
+def virtual_devices(n: int = 8):
+    """A module-scoped autouse fixture that gives the port ``n`` virtual
+    CPU devices (``torchenv.force_cpu(virtual_devices=n)``) for the cases
+    of a file and puts the previous device list back after them, so no
+    file depends on which files ran before it in a worker.  Bind it to a
+    name in a test file's globals to arm it."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _virtual_devices():
+        from smartbft_tpu_torch.utils import torchenv
+
+        previous = torchenv.force_cpu(virtual_devices=n)
+        yield
+        torchenv.restore(previous)
+
+    return _virtual_devices
