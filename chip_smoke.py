@@ -18,7 +18,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 B = 16384 and 2048 lanes signed by the 64 replica keys, with
                 a seeded rejection matrix (corrupted r, r = 0, s >= n,
                 wrong-key kidx, zero-padded lanes): both masks equal bit for
-                bit and equal OpenSSL's verdicts.
+                bit and equal the verdicts of the port's
+                ``OpenSSLVerifyEngine`` (the oracle of every signature
+                kernel here).
 3. generic    — the same for the P-256 generic kernel, on keys outside the
                 registry plus off-curve keys.
 4. ed_comb    — the Ed25519 comb kernel against its plain version at B =
@@ -220,26 +222,53 @@ Phases, one JSON line each; any failure exits non-zero:
                 launches, the kernel's rungs (lanes a card) and the
                 logical ones, fill and its ``mesh`` block;
                 ``mesh_busy`` follows the kernels line.
-14. kernels   — one line with the five kernels: launches in their cell,
+14. embedder  — the application layer: the port's
+                ``examples/naive_chain.py``, 4 nodes that implement the
+                whole SPI over their own channel mesh with real P-256
+                commit votes.  Cell N1 runs ``naive_chain.main(32,
+                "cuda")`` as a user would (keyring seed
+                ``b"naive-chain"``, depth 1, 32 blocks of one transaction,
+                one ``TorchVerifyEngine`` on the card shared by every
+                node's provider, the offline re-verify of every commit
+                signature included); cell N4 builds the same 4 nodes with
+                ``pipeline=4`` and submits the 32 transactions as a burst.
+                Each zeroes the five counters just before its run and
+                reads them just after (only the comb kernel, lanes
+                covering every verified vote, breaker shut, no failed
+                launch); every node must hold the same chain, each
+                transaction once, its links verified, and every commit
+                signature must re-verify true through
+                ``OpenSSLVerifyEngine`` and through the kernel.  Prints
+                blocks/s, tx/s, launches and elapsed.  Then the OpenSSL
+                oracle stage: the seeded mixed waves of phases 2-5 at rung
+                512 through the four signature kernels, the engine's
+                verdicts equal to each mask bit for bit, with the engine's
+                µs a signature for each scheme and the host's CPU model
+                and core count; then the baseline stage: the port's
+                ``obs.baseline.tiny_logical_row()`` validates under
+                ``obs.benchschema`` and checks clean against
+                ``BASELINE_OBS.json``.  ``embedder_busy`` follows the
+                kernels line.
+15. kernels   — one line with the five kernels: launches in their cell,
                 agreement, time per launch at every rung the cell used
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
                 also carries its launches, lanes and rungs in cells F1,
-                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1, T2, M1, M2
-                and M0 (``cells``), and is timed at their rungs too.
-15. generic_groups — the generic P-256 kernel at each group size (threads
+                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1, T2, M1, M2,
+                M0, N1 and N4 (``cells``), and is timed at their rungs too.
+16. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
                 build at 4 (``csrc.VARIANTS``), each held to the plain
                 mask at rung 512 and timed in turns (8, 4, 4, 8) at rungs
                 128, 512, 2048 and at 16384, with ptxas' registers, stack
                 and spills.
-16. ed_generic_groups — the same for the generic Ed25519 kernel: the
+17. ed_generic_groups — the same for the generic Ed25519 kernel: the
                 library (4 threads a signature) and the build at 2.
-17. comb_groups — the same for the P-256 comb kernel: the library (8
+18. comb_groups — the same for the P-256 comb kernel: the library (8
                 threads a signature) and the build at 4.
-18. ed_comb_groups — the same for the Ed25519 comb kernel: the library
+19. ed_comb_groups — the same for the Ed25519 comb kernel: the library
                 (4 threads a signature) and the build at 2.
-19. bls_groups — the same for the BLS12-381 pairing kernel: the library
+20. bls_groups — the same for the BLS12-381 pairing kernel: the library
                 and the build at its other group size (threads a lane),
                 at 128, 512, 2048 and 16384 lanes (the 2048-lane batch
                 eight times over); then the split of a launch between the
@@ -307,22 +336,12 @@ def nvidia_smi(fields: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def openssl_verify(item) -> bool:
-    """Independent verdict from OpenSSL (the cryptography wheel)."""
-    from cryptography.exceptions import InvalidSignature
-    from cryptography.hazmat.primitives import hashes
-    from cryptography.hazmat.primitives.asymmetric import ec
-    from cryptography.hazmat.primitives.asymmetric.utils import (
-        encode_dss_signature,
-    )
+def openssl(scheme):
+    """The port's OpenSSL engine of ``scheme``: the independent oracle
+    every signature kernel's verdicts are held to."""
+    from smartbft_tpu_torch.crypto.openssl_engine import OpenSSLVerifyEngine
 
-    msg, r, s, (x, y) = item
-    try:
-        pub = ec.EllipticCurvePublicNumbers(x, y, ec.SECP256R1()).public_key()
-        pub.verify(encode_dss_signature(r, s), msg, ec.ECDSA(hashes.SHA256()))
-        return True
-    except (InvalidSignature, ValueError):
-        return False
+    return OpenSSLVerifyEngine(scheme=scheme)
 
 
 def make_batch(bsz: int, keys, rng, p256, tag: str):
@@ -439,67 +458,99 @@ def kernel_phase(name, run_kernel, run_plain, expect, make_args):
             "plain_ms": round(plain_ms, 3), "args": args}
 
 
-def phase_comb(rng, keys):
+def comb_tables(keys):
+    """A comb registry of ``keys`` and the (base, key) tables on the card."""
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_comb as cc
+
+    reg = cc.CombKeyRegistry()
+    for _, pub in keys:
+        reg.register(pub)
+    dev = torch.device("cuda")
+    return reg, [torch.from_numpy(cc.g_table()).to(dev),
+                 torch.from_numpy(reg.stacked()).to(dev)]
+
+
+def comb_wave(bsz, keys, rng, reg, tables, tag):
+    """A seeded comb wave of ``bsz`` lanes (:func:`make_batch`): the items
+    as OpenSSL sees them (message, r, s, the claimed key), the number of
+    trailing zero lanes, and the kernel's arguments on the card."""
     import numpy as np
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_comb as cc
     from smartbft_tpu_torch.crypto import p256
 
-    reg = cc.CombKeyRegistry()
-    for _, pub in keys:
-        reg.register(pub)
+    items, claim, npad = make_batch(bsz, keys, rng, p256, tag)
+    e8, r8, s8, _ = cc.pack_items(items, reg)
+    z = np.zeros((npad, 32), np.uint8)
+    e8, r8, s8 = (np.concatenate([a, z]) for a in (e8, r8, s8))
+    kidx = np.array(claim + [0] * npad, np.int32)
+    claimed = [(m, r, s, keys[k][1]) for (m, r, s, _), k in zip(items, claim)]
     dev = torch.device("cuda")
-    gtab = torch.from_numpy(cc.g_table()).to(dev)
-    qtab = torch.from_numpy(reg.stacked()).to(dev)
+    return claimed, npad, [torch.from_numpy(a).to(dev)
+                           for a in (e8, r8, s8, kidx)] + tables
+
+
+def phase_comb(rng, keys):
+    from smartbft_tpu_torch.crypto import cuda_comb as cc
+    from smartbft_tpu_torch.crypto import p256
+
+    reg, tables = comb_tables(keys)
+    oracle = openssl(p256)
     records = {}
     for bsz in (16384, 2048):
-        items, claim, npad = make_batch(bsz, keys, rng, p256, f"comb{bsz}")
-        e8, r8, s8, _ = cc.pack_items(items, reg)
-        z = np.zeros((npad, 32), np.uint8)
-        e8, r8, s8 = (np.concatenate([a, z]) for a in (e8, r8, s8))
-        kidx = np.array(claim + [0] * npad, np.int32)
-        expect = [openssl_verify((m, r, s, keys[k][1]))
-                  for (m, r, s, _), k in zip(items, claim)] + [False] * npad
-
-        def make_args():
-            return [torch.from_numpy(a).to(dev) for a in (e8, r8, s8, kidx)] \
-                + [gtab, qtab]
-
+        claimed, npad, args = comb_wave(bsz, keys, rng, reg, tables,
+                                        f"comb{bsz}")
+        expect = oracle.verify(claimed) + [False] * npad
         rec = kernel_phase(f"comb B={bsz}", cc.ecdsa_verify_comb,
-                           cc.ecdsa_verify_comb_plain, expect, make_args)
+                           cc.ecdsa_verify_comb_plain, expect, lambda: args)
         records[bsz] = rec
         emit({"phase": "comb", "ok": True, "B": bsz,
               **{k: v for k, v in rec.items() if k != "args"}})
     return records
 
 
-def phase_generic(rng):
+def generic_keys() -> list:
+    from smartbft_tpu_torch.crypto import p256
+
+    return [p256.keygen(b"smoke-generic-%d" % i) for i in range(64)]
+
+
+def generic_wave(bsz, keys, rng, tag):
+    """A seeded generic P-256 wave of ``bsz`` lanes: :func:`make_batch`
+    with each wrong-key lane presenting the other key and 8 more lanes an
+    off-curve key.  Returns the items, the number of trailing zero lanes
+    and the kernel's arguments on the card."""
     import numpy as np
     import torch
 
+    from smartbft_tpu_torch.crypto import p256
+
+    items, claim, npad = make_batch(bsz, keys, rng, p256, tag)
+    items = [(m, r, s, keys[k][1]) for (m, r, s, _), k in zip(items, claim)]
+    for lane in rng.choice(len(items), size=8, replace=False):
+        m, r, s, (x, y) = items[lane]
+        items[lane] = (m, r, s, (x, (y + 1) % p256.P))
+    arrays = [np.concatenate([a, np.zeros((npad, 32), np.uint8)])
+              for a in p256.verify_bytes(items)]
+    dev = torch.device("cuda")
+    return items, npad, [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def phase_generic(rng):
     from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
     from smartbft_tpu_torch.crypto import p256
 
-    keys = [p256.keygen(b"smoke-generic-%d" % i) for i in range(64)]
-    dev = torch.device("cuda")
+    keys = generic_keys()
+    oracle = openssl(p256)
     records = {}
     for bsz in (16384, 2048):
-        items, claim, npad = make_batch(bsz, keys, rng, p256, f"gen{bsz}")
-        # wrong-key lanes present the other key; off-curve keys besides
-        items = [(m, r, s, keys[k][1]) for (m, r, s, _), k in zip(items, claim)]
-        for lane in rng.choice(len(items), size=8, replace=False):
-            m, r, s, (x, y) = items[lane]
-            items[lane] = (m, r, s, (x, (y + 1) % p256.P))
-        arrays = [np.concatenate([a, np.zeros((npad, 32), np.uint8)])
-                  for a in p256.verify_bytes(items)]
-        expect = [openssl_verify(it) for it in items] + [False] * npad
-
-        def make_args():
-            return [torch.from_numpy(a).to(dev) for a in arrays]
-
+        items, npad, args = generic_wave(bsz, keys, rng, f"gen{bsz}")
+        expect = oracle.verify(items) + [False] * npad
         rec = kernel_phase(f"generic B={bsz}", ce.ecdsa_verify,
-                           ce.ecdsa_verify_plain, expect, make_args)
+                           ce.ecdsa_verify_plain, expect, lambda: args)
         records[bsz] = rec
         emit({"phase": "generic", "ok": True, "B": bsz,
               **{k: v for k, v in rec.items() if k != "args"}})
@@ -509,20 +560,6 @@ def phase_generic(rng):
 # ---------------------------------------------------------------------------
 # Ed25519 batches
 # ---------------------------------------------------------------------------
-
-
-def openssl_ed_verify(msg, sig, pub) -> bool:
-    """Independent Ed25519 verdict from OpenSSL (the cryptography wheel)."""
-    from cryptography.exceptions import InvalidSignature
-    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
-        Ed25519PublicKey,
-    )
-
-    try:
-        Ed25519PublicKey.from_public_bytes(pub).verify(sig, msg)
-        return True
-    except (InvalidSignature, ValueError):
-        return False
 
 
 def undecodable_r(rng, ed):
@@ -573,9 +610,10 @@ def make_ed_batch(bsz: int, keys, rng, ed, tag: str, kinds: int):
 
 def check_ed_expectations(name, items, pubs, truth, no_key, rng, ed):
     """The verdicts a batch must get, held to ``ed25519.verify_item`` on
-    every faulted lane and a seeded sample of valid ones, and to OpenSSL on
-    every lane; lanes in ``no_key`` (a claim on a padded stack slot) have no
-    key to hold them to.  Returns the number of verify_item lanes."""
+    every faulted lane and a seeded sample of valid ones, and to the
+    OpenSSL engine on every lane; lanes in ``no_key`` (a claim on a padded
+    stack slot) have no key to hold them to.  Returns the number of
+    verify_item lanes."""
     faulted = [i for i, t in enumerate(truth[:len(items)])
                if not t and i not in no_key]
     valid = [i for i, t in enumerate(truth[:len(items)]) if t]
@@ -585,96 +623,133 @@ def check_ed_expectations(name, items, pubs, truth, no_key, rng, ed):
         m, sig, _ = items[i]
         if ed.verify_item((m, sig, pubs[i])) != truth[i]:
             fail(f"{name}: verify_item disagrees with lane {i}'s fault")
-    for i in range(len(items)):
-        m, sig, _ = items[i]
-        if i not in no_key and openssl_ed_verify(m, sig, pubs[i]) != truth[i]:
+    lanes = [i for i in range(len(items)) if i not in no_key]
+    got = openssl(ed).verify([(items[i][0], items[i][1], pubs[i])
+                              for i in lanes])
+    for i, ok in zip(lanes, got):
+        if ok != truth[i]:
             fail(f"{name}: OpenSSL disagrees with lane {i}'s fault")
     return len(sample)
 
 
-def phase_ed_comb(rng, keys):
+def ed_comb_tables(keys):
+    """An Ed25519 comb registry of ``keys`` and one more (the stack pads
+    to 128 slots, so slots 65..127 are zero and a claim on them must
+    fail), and the (base, key) tables on the card."""
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    reg = ced.Ed25519CombVerifier("cpu").registry
+    for _, pub in keys + [ed.keygen(b"smoke-ed-extra")]:
+        reg.register(pub)
+    dev = torch.device("cuda")
+    return reg, [torch.from_numpy(ced.b_table()).to(dev),
+                 torch.from_numpy(reg.stacked()).to(dev)]
+
+
+def ed_comb_wave(bsz, keys, rng, reg, tables, tag, kinds):
+    """A seeded Ed25519 comb wave (:func:`make_ed_batch`, faults of
+    ``kinds`` kinds).  Returns the items, each lane's claimed key, the
+    expected verdict per lane, the lanes claiming a padded stack slot,
+    the faulted lanes by kind, and the kernel's arguments on the card."""
     import numpy as np
     import torch
 
     from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
     from smartbft_tpu_torch.crypto import ed25519 as ed
 
-    # the 64 replica keys and one more: the stack pads to 128 slots, so
-    # slots 65..127 are zero and a claim on them must fail
-    reg = ced.Ed25519CombVerifier("cpu").registry
-    for _, pub in keys + [ed.keygen(b"smoke-ed-extra")]:
-        reg.register(pub)
-    qtab_np = reg.stacked()
+    slots = int(tables[1].shape[0])
+    items, claim, faults, npad = make_ed_batch(bsz, keys, rng, ed, tag,
+                                               kinds=kinds)
+    s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
+    kidx[:] = claim
+    for lane in faults.get(5, []):
+        kidx[lane] = len(reg) + lane % (slots - len(reg))
+        ok[lane] = 1
+    z = np.zeros((npad, 32), np.uint8)
+    s8, h8, rx8, ry8 = (np.concatenate([a, z]) for a in (s8, h8, rx8, ry8))
+    zl = np.zeros(npad, np.int32)
+    ok, kidx = np.concatenate([ok, zl]), np.concatenate([kidx, zl])
+    faulted = {i for lanes in faults.values() for i in lanes}
+    truth = [i not in faulted for i in range(len(items))] + [False] * npad
+    pubs = [keys[k][1] for k in claim]
     dev = torch.device("cuda")
-    btab = torch.from_numpy(ced.b_table()).to(dev)
-    qtab = torch.from_numpy(qtab_np).to(dev)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (s8, h8, rx8, ry8, ok, kidx)] + tables
+    return items, pubs, truth, set(faults.get(5, [])), faults, args
+
+
+def phase_ed_comb(rng, keys):
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    reg, tables = ed_comb_tables(keys)
     records = {}
     for bsz in (16384, 2048):
-        items, claim, faults, npad = make_ed_batch(
-            bsz, keys, rng, ed, f"edc{bsz}", kinds=6)
-        s8, h8, rx8, ry8, ok, kidx = ced.pack_items(items, reg)
-        kidx[:] = claim
-        for lane in faults.get(5, []):
-            kidx[lane] = len(reg) + lane % (qtab_np.shape[0] - len(reg))
-            ok[lane] = 1
-        z = np.zeros((npad, 32), np.uint8)
-        s8, h8, rx8, ry8 = (np.concatenate([a, z]) for a in (s8, h8, rx8, ry8))
-        zl = np.zeros(npad, np.int32)
-        ok, kidx = np.concatenate([ok, zl]), np.concatenate([kidx, zl])
-        faulted = {i for lanes in faults.values() for i in lanes}
-        truth = [i not in faulted for i in range(len(items))] + [False] * npad
-        pubs = [keys[k][1] for k in claim]
+        items, pubs, truth, no_key, faults, args = ed_comb_wave(
+            bsz, keys, rng, reg, tables, f"edc{bsz}", kinds=6)
         n_vi = check_ed_expectations(f"ed_comb B={bsz}", items, pubs, truth,
-                                     set(faults.get(5, [])), rng, ed)
-
-        def make_args():
-            return [torch.from_numpy(a).to(dev)
-                    for a in (s8, h8, rx8, ry8, ok, kidx)] + [btab, qtab]
-
+                                     no_key, rng, ed)
         rec = kernel_phase(f"ed_comb B={bsz}", ced.eddsa_verify_comb,
-                           ced.eddsa_verify_comb_plain, truth, make_args)
+                           ced.eddsa_verify_comb_plain, truth, lambda: args)
         records[bsz] = rec
         emit({"phase": "ed_comb", "ok": True, "B": bsz,
-              "stack_slots": int(qtab_np.shape[0]), "keys": len(reg),
+              "stack_slots": int(tables[1].shape[0]), "keys": len(reg),
               "faults": {str(k): len(v) for k, v in sorted(faults.items())},
               "verify_item_lanes": n_vi,
               **{k: v for k, v in rec.items() if k != "args"}})
     return records
 
 
-def phase_ed_generic(rng):
+def ed_generic_keys() -> list:
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    return [ed.keygen(b"smoke-ed-generic-%d" % i) for i in range(64)]
+
+
+def ed_generic_wave(bsz, keys, rng, tag):
+    """A seeded generic Ed25519 wave (:func:`make_ed_batch`, five kinds of
+    fault), the claimed key presented and 8 more lanes presenting a key
+    that does not decode.  Returns the items, the expected verdict per
+    lane, the faulted lanes by kind, the undecodable-key lanes and the
+    kernel's arguments on the card."""
     import numpy as np
     import torch
 
+    from smartbft_tpu_torch.crypto import ed25519 as ed
+
+    items, claim, faults, npad = make_ed_batch(bsz, keys, rng, ed, tag,
+                                               kinds=5)
+    items = [(m, sig, keys[k][1]) for (m, sig, _), k in zip(items, claim)]
+    bad_keys = [int(i) for i in rng.choice(len(items), 8, replace=False)]
+    for lane in bad_keys:
+        m, sig, _ = items[lane]
+        items[lane] = (m, sig, undecodable_r(rng, ed))
+    arrays = [np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
+              for a in ed.verify_inputs(items)]
+    faulted = {i for lanes in faults.values() for i in lanes} | set(bad_keys)
+    truth = [i not in faulted for i in range(len(items))] + [False] * npad
+    dev = torch.device("cuda")
+    return items, truth, faults, bad_keys, [torch.from_numpy(a).to(dev)
+                                            for a in arrays]
+
+
+def phase_ed_generic(rng):
     from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
     from smartbft_tpu_torch.crypto import ed25519 as ed
 
-    keys = [ed.keygen(b"smoke-ed-generic-%d" % i) for i in range(64)]
-    dev = torch.device("cuda")
+    keys = ed_generic_keys()
     records = {}
     for bsz in (16384, 2048):
-        items, claim, faults, npad = make_ed_batch(
-            bsz, keys, rng, ed, f"edg{bsz}", kinds=5)
-        # the claimed key is the key presented; 8 more lanes present a key
-        # that does not decode
-        items = [(m, sig, keys[k][1]) for (m, sig, _), k in zip(items, claim)]
-        bad_keys = [int(i) for i in rng.choice(len(items), 8, replace=False)]
-        for lane in bad_keys:
-            m, sig, _ = items[lane]
-            items[lane] = (m, sig, undecodable_r(rng, ed))
-        arrays = [np.concatenate([a, np.zeros((npad,) + a.shape[1:], a.dtype)])
-                  for a in ed.verify_inputs(items)]
-        faulted = {i for lanes in faults.values() for i in lanes} | set(bad_keys)
-        truth = [i not in faulted for i in range(len(items))] + [False] * npad
+        items, truth, faults, bad_keys, args = ed_generic_wave(
+            bsz, keys, rng, f"edg{bsz}")
         pubs = [pub for _, _, pub in items]
         n_vi = check_ed_expectations(f"ed_generic B={bsz}", items, pubs, truth,
                                      set(), rng, ed)
-
-        def make_args():
-            return [torch.from_numpy(a).to(dev) for a in arrays]
-
         rec = kernel_phase(f"ed_generic B={bsz}", cgd.eddsa_verify,
-                           cgd.eddsa_verify_plain, truth, make_args)
+                           cgd.eddsa_verify_plain, truth, lambda: args)
         records[bsz] = rec
         emit({"phase": "ed_generic", "ok": True, "B": bsz,
               "faults": {str(k): len(v) for k, v in sorted(faults.items())},
@@ -902,7 +977,7 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
     scheduler = Scheduler()
     driver = WallClockDriver(scheduler, tick_interval=0.01)
     network = Network(seed=13) if transport is None else None
-    comms = socket_comms(node_ids, transport, wal_root, tag)
+    comms, reserved = socket_comms(node_ids, transport, wal_root, tag)
     shared = SharedLedgers()
     apps = [
         App(i, network, shared, scheduler,
@@ -914,8 +989,12 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
 
     driver.start()
     try:
-        for a in apps:
-            await a.start()
+        try:
+            for a in apps:
+                await a.start()
+        finally:
+            for sock in reserved:
+                sock.close()
         t0 = time.perf_counter()
         # the default plane, which both the in-process network and the
         # sockets feed: the process-wide aggregate drops the counts of
@@ -964,19 +1043,26 @@ async def run_cluster(engine, rings, node_ids, decisions: int, batch: int,
     return out
 
 
-def socket_comms(node_ids, transport, wal_root: str, tag: str) -> dict:
+def socket_comms(node_ids, transport, wal_root: str, tag: str):
     """One ``SocketComm`` a replica over ``transport`` (``"uds"``: sockets
     in a directory of the run's own under ``wal_root``, or under /tmp
     where that path would pass the ~107-byte UDS limit; ``"tcp"``:
     127.0.0.1, ports reserved up front), or {} for the in-process
-    network."""
+    network; and the sockets that hold the TCP ports, to close once every
+    replica listens.  A reserving socket stays bound (SO_REUSEADDR, not
+    listening, so the replica's server can bind the port beside it)
+    because the replicas that start first dial their peers, and the
+    kernel gave a dial's source port to a port reserved and released
+    (``address already in use`` at a later replica's bind: once in ten
+    smoke runs on the card)."""
+    import socket
     import tempfile
 
-    from smartbft_tpu_torch.net.cluster import _free_port
     from smartbft_tpu_torch.net.transport import SocketComm
 
+    reserved: list = []
     if transport is None:
-        return {}
+        return {}, reserved
     if transport == "uds":
         sockdir = os.path.join(wal_root, f"{tag}-s")
         if len(sockdir) > 90:
@@ -984,12 +1070,18 @@ def socket_comms(node_ids, transport, wal_root: str, tag: str) -> dict:
         os.makedirs(sockdir, exist_ok=True)
         addrs = {i: f"uds://{sockdir}/n{i}.sock" for i in node_ids}
     else:
-        addrs = {i: f"tcp://127.0.0.1:{_free_port()}" for i in node_ids}
+        addrs = {}
+        for i in node_ids:
+            sock = socket.socket()
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            sock.bind(("127.0.0.1", 0))
+            reserved.append(sock)
+            addrs[i] = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
     return {i: SocketComm(i, addrs[i],
                           {j: a for j, a in addrs.items() if j != i},
                           cluster_key=b"smoke", backoff_base=0.01,
                           backoff_max=0.2)
-            for i in node_ids}
+            for i in node_ids}, reserved
 
 
 def socket_totals(comms: dict) -> dict:
@@ -1877,8 +1969,9 @@ def mesh_cell(tag, devices, topology, cards, wal_root, pace=0.03,
     if topology == "2d" and devices <= cards:
         if not launches or psum_steps_run < 1:
             fail(f"mesh {tag}: the 2D engine ran no quorum step")
+        oracle = openssl(engine.scheme)
         for items, got, counts, decided in launches:
-            host = [openssl_verify(it) for it in items]
+            host = oracle.verify(items)
             tally = distinct_valid_votes(items, host)
             if got != host or counts != tally or decided != {
                     m: c >= engine.quorum for m, c in tally.items()}:
@@ -1926,6 +2019,259 @@ def phase_mesh(wal_root, pace=0.03):
             for tag, cell in (("m1", m1), ("m2", m2), ("m0", m0))},
     })
     return {"m1": m1, "m2": m2, "m0": m0}
+
+
+def chain_breaker(nodes) -> dict:
+    """The breaker counters of the nodes' coalescers, summed."""
+    out: dict = {}
+    for node in nodes:
+        for k, v in node.crypto._coalescer.fault_snapshot().items():
+            if isinstance(v, bool):
+                out[k] = out.get(k, False) or v
+            else:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_chain(tag, nodes, engine, txs: int) -> dict:
+    """Cell checks of phase embedder: every node holds the same chain with
+    ``txs`` transactions, each once, and its links verify; every commit
+    signature of every decision re-verifies true through the OpenSSL
+    engine and through the kernel (comparison launches, after the cell's
+    counters were read)."""
+    from smartbft_tpu_torch.codec import encode
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.examples.naive_chain import verify_chain
+
+    chains = {tuple(encode(h) for h, _, _ in n.blocks) for n in nodes}
+    if len(chains) != 1:
+        fail(f"embedder {tag}: nodes hold {len(chains)} different chains, "
+             f"heights {[len(n.blocks) for n in nodes]}")
+    for n in nodes:
+        verify_chain(n)
+    got = [raw for _, transactions, _ in nodes[0].blocks
+           for raw in transactions]
+    if len(got) != txs or len(set(got)) != txs:
+        fail(f"embedder {tag}: {len(got)} transactions ({len(set(got))} "
+             f"distinct) committed, {txs} submitted")
+    items = list(dict.fromkeys(
+        n.crypto._item(sig) for n in nodes for d in n.decisions
+        for sig in d.signatures))
+    if any(len(d.signatures) < 3 for d in nodes[0].decisions):
+        fail(f"embedder {tag}: a decision without a quorum of signatures")
+    by_openssl = openssl(p256).verify(items)
+    by_kernel = engine.verify(items)
+    if not all(by_openssl) or by_kernel != by_openssl:
+        fail(f"embedder {tag}: commit signatures re-verified "
+             f"{sum(by_openssl)} true by OpenSSL and {sum(by_kernel)} by "
+             f"the kernel of {len(items)}")
+    return {"blocks": len(nodes[0].blocks), "txs": txs,
+            "heights": [len(n.blocks) for n in nodes],
+            "commit_sigs_reverified": len(items)}
+
+
+async def run_pipelined_chain(engine, blocks: int, pipeline: int,
+                              wal_root: str) -> list:
+    """``tests/test_naive_chain.py``'s pipelined embedder: 4 ``ChainNode``s
+    built with ``pipeline`` on one engine, ``blocks`` transactions
+    submitted to node 1 as a burst; returns the stopped nodes once every
+    node holds them all."""
+    from smartbft_tpu_torch.crypto.provider import Keyring
+    from smartbft_tpu_torch.examples import naive_chain as nc
+    from smartbft_tpu_torch.utils.clock import Scheduler, WallClockDriver
+
+    scheduler = Scheduler()
+    driver = WallClockDriver(scheduler, tick_interval=0.01)
+    mesh = nc.ChannelMesh()
+    rings = Keyring.generate([1, 2, 3, 4], seed=b"naive-chain")
+    nodes = [nc.ChainNode(i, mesh, scheduler, rings[i],
+                          os.path.join(wal_root, f"chain-p{pipeline}-wal-{i}"),
+                          pipeline=pipeline, engine=engine)
+             for i in range(1, 5)]
+    driver.start()
+    try:
+        for n in nodes:
+            await n.start()
+        for k in range(blocks):
+            await nodes[0].submit("alice", f"txn-{k}",
+                                  payload=f"transfer #{k}".encode())
+        deadline = time.monotonic() + 120
+        while sum(len(t) for _, t, _ in nodes[-1].blocks) < blocks \
+                or len({len(n.blocks) for n in nodes}) != 1:
+            if time.monotonic() > deadline:
+                fail(f"embedder n{pipeline}: heights "
+                     f"{[len(n.blocks) for n in nodes]} after 120 s")
+            await asyncio.sleep(0.01)
+    finally:
+        for n in nodes:
+            await n.stop()
+        await driver.stop()
+    return nodes
+
+
+def embedder_cell(tag, blocks, pipeline, wal_root) -> dict:
+    """One cell of phase embedder.  N1 runs ``naive_chain.main(blocks,
+    "cuda")`` as a user would; N4 the pipelined embedder of
+    :func:`run_pipelined_chain`.  The five launch counters are zeroed
+    just before the run and read just after it (:func:`read_cell`: only
+    the comb kernel, lanes covering every verified vote, breaker shut, no
+    failed launch); then :func:`check_chain`."""
+    from smartbft_tpu_torch.crypto import p256
+    from smartbft_tpu_torch.crypto.provider import TorchVerifyEngine
+    from smartbft_tpu_torch.examples import naive_chain as nc
+
+    for c in launch_counters().values():
+        c.reset()
+    t0 = time.perf_counter()
+    if pipeline == 1:
+        nodes = asyncio.run(nc.main(blocks, "cuda"))
+        engine = nodes[0].crypto.engine
+    else:
+        engine = TorchVerifyEngine(scheme=p256, device="cuda")
+        nodes = asyncio.run(run_pipelined_chain(engine, blocks, pipeline,
+                                                wal_root))
+    elapsed = time.perf_counter() - t0
+    run = {"pipeline": pipeline, "decisions": len(nodes[0].blocks),
+           "breaker": chain_breaker(nodes)}
+    run.update(read_cell(engine, "comb", "embedder", tag, run))
+    run.update(check_chain(tag, nodes, engine, blocks))
+    run.update(elapsed_s=round(elapsed, 3),
+               blocks_per_s=round(run["blocks"] / elapsed, 2),
+               tx_per_s=round(blocks / elapsed, 2))
+    return run
+
+
+def openssl_oracle(rng, keys, ed_keys, rung=512) -> dict:
+    """The OpenSSL oracle stage: at ``rung`` lanes, the smoke's seeded
+    mixed waves (P-256 from :func:`make_batch`, Ed25519 from
+    :func:`make_ed_batch`, with their forged and malformed lanes) through
+    the comb, generic, Ed25519 comb and Ed25519 generic kernels; the
+    port's ``OpenSSLVerifyEngine`` verdicts must equal each mask bit for
+    bit on every lane that carries an item, the zero lanes must fail, and
+    the engine's µs a signature (keys cached) is the CPU baseline."""
+    import torch
+
+    from smartbft_tpu_torch.crypto import cuda_comb as cc
+    from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
+    from smartbft_tpu_torch.crypto import cuda_ed25519 as ced
+    from smartbft_tpu_torch.crypto import cuda_eddsa as cgd
+    from smartbft_tpu_torch.crypto import ed25519, p256
+
+    reg, tables = comb_tables(keys)
+    claimed, _, comb_args = comb_wave(rung, keys, rng, reg, tables, "oracle")
+    generic, _, gen_args = generic_wave(rung, generic_keys(), rng,
+                                        "oracle-gen")
+    ed_reg, ed_tables = ed_comb_tables(ed_keys)
+    items, pubs, _, _, _, edc_args = ed_comb_wave(
+        rung, ed_keys, rng, ed_reg, ed_tables, "oracle-edc", kinds=5)
+    ed_claimed = [(m, sig, pub) for (m, sig, _), pub in zip(items, pubs)]
+    ed_generic, _, _, _, edg_args = ed_generic_wave(
+        rung, ed_generic_keys(), rng, "oracle-edg")
+    out = {"rung": rung, "kernels": {}}
+    for name, scheme, kern, args, its in (
+            ("comb_verify", p256, cc.ecdsa_verify_comb, comb_args, claimed),
+            ("ecdsa_verify", p256, ce.ecdsa_verify, gen_args, generic),
+            ("ed_comb_verify", ed25519, ced.eddsa_verify_comb, edc_args,
+             ed_claimed),
+            ("eddsa_verify", ed25519, cgd.eddsa_verify, edg_args,
+             ed_generic)):
+        mask = kern(*args)
+        torch.cuda.synchronize()
+        mask = mask.cpu().tolist()
+        oracle = openssl(scheme)
+        oracle.verify(its)  # warms the engine's key cache
+        t0 = time.perf_counter()
+        verdicts = oracle.verify(its)
+        us = 1e6 * (time.perf_counter() - t0) / len(its)
+        if [bool(v) for v in mask[:len(its)]] != verdicts \
+                or any(mask[len(its):]):
+            bad = [i for i, (a, b) in enumerate(zip(mask, verdicts))
+                   if bool(a) != b]
+            fail(f"oracle: OpenSSL and {name} differ at lanes {bad[:16]}")
+        out["kernels"][name] = {"lanes": len(mask), "items": len(its),
+                                "accepted": sum(verdicts),
+                                "rejected": len(its) - sum(verdicts)}
+        out.setdefault("openssl_us_per_sig", {}).setdefault(
+            scheme.__name__.rsplit(".", 1)[-1], []).append(round(us, 3))
+    return out
+
+
+def host_cpu() -> dict:
+    """The host's CPU model and core count (the OpenSSL baseline's
+    hardware): ``/proc/cpuinfo``'s model line, else ``lscpu``'s."""
+    model = None
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if key.strip() in ("model name", "Model", "cpu model"):
+                    model = value.strip()
+                    break
+    except OSError:
+        pass
+    if not model:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+            model = next((line.split(":", 1)[1].strip()
+                          for line in out.splitlines()
+                          if line.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    import platform
+
+    return {"model": model or platform.processor() or platform.machine(),
+            "machine": platform.machine(), "cores": os.cpu_count()}
+
+
+def baseline_stage() -> dict:
+    """The port's tiny logical-clock row (a 4-node in-process cluster on
+    the tick-driven scheduler) must validate under the bench-row schema
+    and check clean against the repository's ``BASELINE_OBS.json`` (read
+    only; the row is host-independent)."""
+    from smartbft_tpu_torch.obs.baseline import (
+        check_rows,
+        load_baseline,
+        render_check,
+        tiny_logical_row,
+    )
+    from smartbft_tpu_torch.obs.benchschema import validate_rows
+
+    row = tiny_logical_row()
+    errors = validate_rows([row])
+    if errors:
+        fail(f"baseline: the tiny logical row drifted: {errors}")
+    res = check_rows([row], load_baseline(os.path.join(HERE,
+                                                       "BASELINE_OBS.json")))
+    if not res["ok"] or res["checked"] != ["tiny_logical_commit_ms"]:
+        fail(f"baseline: {render_check(res)}")
+    return {"metric": row["metric"], "value": row["value"],
+            "unit": row["unit"], "decisions": row["decisions"],
+            "checked": res["checked"],
+            "baseline": res["regressions"] or res["improvements"] or "within"}
+
+
+def phase_embedder(wal_root, rng, keys, ed_keys, blocks=32) -> dict:
+    """The application layer: cells N1 (``naive_chain.main`` as a user
+    runs it: 4 nodes, depth 1, ``blocks`` one-transaction blocks, real
+    P-256 votes through one ``TorchVerifyEngine`` on the card) and N4 (the
+    pipelined embedder, depth 4, the ``blocks`` transactions as a burst);
+    then the OpenSSL oracle stage (:func:`openssl_oracle`) and the
+    baseline stage (:func:`baseline_stage`)."""
+    n1 = embedder_cell("n1", blocks, 1, wal_root)
+    n4 = embedder_cell("n4", blocks, 4, wal_root)
+    oracle = openssl_oracle(rng, keys, ed_keys)
+    base = baseline_stage()
+    keep = ("blocks", "txs", "heights", "elapsed_s", "blocks_per_s",
+            "tx_per_s", "kernel_launches", "kernel_lanes",
+            "launches_per_decision", "rung_launches", "main_rung",
+            "sigs_verified", "slots", "fill_pct", "commit_sigs_reverified",
+            "breaker")
+    emit({"phase": "embedder", "ok": True,
+          "cells": {tag: {k: cell.get(k) for k in keep}
+                    for tag, cell in (("n1", n1), ("n4", n4))},
+          "oracle": oracle, "host_cpu": host_cpu(), "baseline": base})
+    return {"n1": n1, "n4": n4}
 
 
 def openloop_config(s, i):
@@ -2846,15 +3192,18 @@ def main() -> int:
         byz = timed("byzantine", phase_byzantine, wal_root)
         socks = timed("sockets", phase_sockets, wal_root)
         meshes = timed("mesh", phase_mesh, wal_root)
+        embed = timed("embedder", phase_embedder, wal_root, rng, keys,
+                      ed_keys)
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
                       {**sharded, **plane, **loads, **byz, **socks,
-                       **meshes})
+                       **meshes, **embed})
         busy_line(sharded, rows[0])
         busy_line(plane, rows[0], "verify_plane_busy")
         busy_line(loads, rows[0], "open_loop_busy")
         busy_line(byz, rows[0], "byzantine_busy")
         busy_line(socks, rows[0], "sockets_busy")
         busy_line(meshes, rows[0], "mesh_busy")
+        busy_line(embed, rows[0], "embedder_busy")
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

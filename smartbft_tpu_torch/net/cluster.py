@@ -1175,6 +1175,17 @@ def run_snapshot_rejoin(
     else:
         cluster.kill(victim)
         report.events.append("crash")
+    # the crash height is what the victim persisted, read off its ledger
+    # file once it is dead: its last answer over the control channel can
+    # trail the decision (and with it the capture) that landed before
+    # the kill, and donors whose horizon passed only that answer may sit
+    # at the victim's own snapshot, so it rejoins by replaying a tail
+    from .launch import LedgerFile
+
+    with open(cluster.replicas[victim].spec_path) as fh:
+        ledger = LedgerFile(json.load(fh)["ledger_path"])
+    persisted = ledger.read_all()
+    victim_h = max(victim_h, ledger.base_height + len(persisted))
     report.victim_height_at_kill = victim_h
     donors = [i for i in cluster.live_ids() if i != victim]
 

@@ -8,8 +8,10 @@ ViewChangePhaseTracker` that decomposes the complain → depose → ViewData
 → new-view → first-commit pipeline into measured sub-phases, the
 per-request critical path (:mod:`.critpath`), the multi-window SLO
 evaluator (:mod:`.slo`) and the health monitor over it (:mod:`.health`),
-and the pure ``assemble_*`` helpers that fold them into bench-row JSON
-blocks.  The report renderer and the baseline guard are not ported yet.
+the pure ``assemble_*`` helpers that fold them into bench-row JSON
+blocks, the trace report (``python -m smartbft_tpu_torch.obs.report``),
+the versioned bench-row schema (:mod:`.benchschema`) and the baseline
+guard over it (``python -m smartbft_tpu_torch.obs.baseline pin|check``).
 """
 
 from .critpath import (  # noqa: F401

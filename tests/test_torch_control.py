@@ -137,20 +137,17 @@ def test_derive_knobs_matches_the_jax_package(seed):
 
 # ------------------------------------------------ the reference's own cases
 
-CASES = {"test_control.py": 22}
-LEFT_OUT = {"test_control.py": [
-    "test_selfdrive_baseline_guard_trips_on_thrash_and_oscillation",
-    "test_selfdrive_rows_validate_and_identify"]}
+CASES = {"test_control.py": 24}
+LEFT_OUT: dict = {}
 
 globals().update(reference_tests("test_control.py"))
 
 
 def test_reference_cases_are_whole_and_ported():
-    """The cases that need the bench-row schema and baseline guard
-    (``obs.benchschema``, ``obs.baseline``) are left out until those
-    modules are ported; every other case runs on the port, the socket
-    control client (``net.cluster``) and the chaos harness's
-    remediation-storm round included."""
+    """Every case runs on the port: the socket control client
+    (``net.cluster``), the chaos harness's remediation-storm round, and
+    the selfdrive rows through the port's bench-row schema and baseline
+    guard (``obs.benchschema``, ``obs.baseline``)."""
     check_matrices(CASES, LEFT_OUT)
     got = reference_tests("test_control.py")
     assert got["test_control__test_derive_knobs_clamps_and_quantizes"] \

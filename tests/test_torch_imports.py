@@ -121,3 +121,31 @@ def test_a_replica_process_touches_no_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] False"
+
+
+def test_scan_covers_the_bench_rows_openssl_and_the_embedder():
+    """The bench-row schema, the baseline guard, the OpenSSL engine and
+    the standalone embedder, under the JAX package's names (the embedder
+    moves from the repository's ``examples/`` into the package)."""
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"obs/benchschema.py", "obs/baseline.py",
+            "crypto/openssl_engine.py", "examples/__init__.py",
+            "examples/naive_chain.py"} <= have
+
+
+#: the JAX package's modules the port has under another name
+RENAMED = {"crypto/pallas_comb.py": "crypto/cuda_comb.py",
+           "crypto/pallas_ecdsa.py": "crypto/cuda_ecdsa.py",
+           "crypto/pallas_ed25519.py": "crypto/cuda_ed25519.py",
+           "utils/jaxenv.py": "utils/torchenv.py"}
+
+
+def test_every_module_of_the_jax_package_has_its_port():
+    """A file-tree diff of the two packages: every module of
+    ``smartbft_tpu`` (and the repository's ``examples/naive_chain.py``)
+    has its counterpart, under its own name or its documented rename."""
+    ref = {str(p.relative_to(ROOT / "smartbft_tpu"))
+           for p in (ROOT / "smartbft_tpu").rglob("*.py")}
+    ref.add("examples/naive_chain.py")
+    have = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {RENAMED.get(m, m) for m in ref} - have == set()

@@ -15,7 +15,10 @@ each difference is checked for what it is:
   (``tests/test_torch_net_shutdown.py`` shows both outcomes);
 * the replica entry point in ``SocketCluster.spawn``'s argv;
 * ``SocketCluster.__init__``'s child environment, which no longer sets
-  ``JAX_PLATFORMS`` (the replica process imports no JAX)."""
+  ``JAX_PLATFORMS`` (the replica process imports no JAX);
+* ``run_snapshot_rejoin``'s crash height, read off the dead victim's
+  ledger file instead of only its last control-channel answer
+  (``tests/test_torch_snapshot_rejoin_oracle.py`` shows both outcomes)."""
 
 import ast
 import pathlib
@@ -29,7 +32,8 @@ DIFFERS = {
     "net/transport.py": {"SocketComm.close"},
     "net/launch.py": {"ControlServer.__init__", "ControlServer.close",
                       "ControlServer._serve"},
-    "net/cluster.py": {"SocketCluster.__init__", "SocketCluster.spawn"},
+    "net/cluster.py": {"SocketCluster.__init__", "SocketCluster.spawn",
+                       "run_snapshot_rejoin"},
 }
 
 
@@ -159,3 +163,26 @@ def test_package_exports_the_transport_as_the_reference_does():
     assert t_net.__all__ == j_net.__all__
     assert {"SocketComm", "TransportMetrics"} <= set(t_net.__all__)
     assert t_net.SocketComm.__module__ == "smartbft_tpu_torch.net.transport"
+
+
+def test_snapshot_rejoin_differs_only_in_the_persisted_crash_height():
+    """Take out of the port's ``run_snapshot_rejoin`` the statements that
+    read the victim's ledger file and raise the crash height to it: what
+    is left is the reference's function."""
+    ref, port = _pair("net/cluster.py")
+    fn = port["run_snapshot_rejoin"]
+    added = [n for n in fn.body if isinstance(n, (ast.ImportFrom, ast.With))
+             or (isinstance(n, ast.Assign) and ast.unparse(n) in (
+                 "persisted = ledger.read_all()",
+                 "victim_h = max(victim_h, ledger.base_height + "
+                 "len(persisted))"))]
+    assert [type(n).__name__ for n in added] == [
+        "ImportFrom", "With", "Assign", "Assign"]
+    assert ast.unparse(added[0]) == "from .launch import LedgerFile"
+    assert "LedgerFile(json.load(fh)['ledger_path'])" in ast.unparse(added[1])
+    rest = [n for n in fn.body if n not in added]
+    trimmed = ast.FunctionDef(name=fn.name, args=fn.args, body=rest,
+                              decorator_list=fn.decorator_list,
+                              returns=fn.returns, type_comment=None,
+                              type_params=[])
+    assert _dump(trimmed) == _dump(ref["run_snapshot_rejoin"])
