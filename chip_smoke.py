@@ -5,7 +5,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits non-zero:
+Phases, one JSON line each.  A failure prints one line
+``{"phase": ..., "ok": false, "error": ...}`` on stdout (an exception's
+line also carries the last frames of its traceback) and exits non-zero:
 
 1. build      — nvcc builds every kernel from ``smartbft_tpu_torch/csrc``
                 (five, sm_90a, and the P-256 comb and generic kernels at 4
@@ -150,9 +152,15 @@ Phases, one JSON line each; any failure exits non-zero:
                 the kernel's lanes must be one the engine was handed and
                 accepted.  Cell Y2: the initial leader equivocates;
                 ``no_equivocation_commit`` must hold and the honest ledger
-                must go on in a later view.  Both print the actor's
-                counters, the per-replica attribution, sheds and shuns,
-                the engine's tally by signer, leaders and views.  Every
+                must go on in a later view.  Cell Y3: the round's censor
+                case, rotation off, 8 requests and open-loop spike
+                arrivals at 10 a second from 1 s to 6 s; the initial
+                leader drops the forwarded requests of client ``chaos``;
+                every honest replica must commit every acked request
+                once, hold one ledger and end in a view after 0.  All
+                three print the actor's counters, the per-replica
+                attribution, sheds and shuns, the engine's tally by
+                signer, leaders and views.  Every
                 cell of phases 10 and 11 passes ``read_cell`` for the
                 comb kernel; ``open_loop_busy`` and ``byzantine_busy``
                 follow the kernels line.
@@ -254,7 +262,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 (CUDA events), at its main rung (most lanes) and at 16384,
                 the plain version's time, and the bound.  The comb row
                 also carries its launches, lanes and rungs in cells F1,
-                F, G0, G, V0, V, K, O1, O2, Y1, Y2, T0, T1, T2, M1, M2,
+                F, G0, G, V0, V, K, O1, O2, Y1, Y2, Y3, T0, T1, T2, M1, M2,
                 M0, N1 and N4 (``cells``), and is timed at their rungs too.
 16. generic_groups — the generic P-256 kernel at each group size (threads
                 a signature): the library the wrapper loads (8) and the
@@ -291,6 +299,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -320,9 +329,50 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: the phase that is running, which a failure line on stdout names
+CURRENT = {"phase": "setup"}
+#: characters of a failure's message kept on its stdout line
+ERROR_CHARS = 4000
+
+
+def report_failure(error: str, **extra) -> None:
+    """One JSON line on stdout naming the running phase and the reason it
+    failed, so a run whose stderr is lost still says where it stopped."""
+    emit({"phase": CURRENT["phase"], "ok": False,
+          "error": error[:ERROR_CHARS], **extra})
+
+
 def fail(msg: str) -> None:
+    report_failure(msg)
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)`` as phase ``name``: a failure inside it is reported on
+    stdout under that name.  An exception is reported once, with the last
+    frames of its traceback, and raised again; ``fail`` reports its own
+    and exits."""
+    outer, CURRENT["phase"] = CURRENT["phase"], name
+    try:
+        out = fn(*args)
+    except Exception as exc:
+        if not getattr(exc, "chip_smoke_reported", False):
+            report_failure(f"{type(exc).__name__}: {exc}", traceback=[
+                line for chunk in traceback.format_exception(exc, limit=-6)
+                for line in chunk.rstrip().splitlines()][-40:])
+            exc.chip_smoke_reported = True
+        raise
+    CURRENT["phase"] = outer
+    return out
+
+
+def early_exit(reason: str) -> int:
+    """An exit before any phase ran: the reason on stdout and on stderr,
+    and exit code 2."""
+    report_failure(reason)
+    print(f"chip_smoke: {reason}", file=sys.stderr, flush=True)
+    return 2
 
 
 def nvidia_smi(fields: str) -> str:
@@ -2452,6 +2502,61 @@ def phase_open_loop(wal_root, engine=None):
     return {"o1": o1, "o2": o2}
 
 
+async def spike_load(apps, rate: float, start: float, stop: float,
+                     t0: float, seed: int = 1) -> dict:
+    """The chaos round's ``load_spike``: open-loop Poisson arrivals at
+    ``rate`` a second (``testing.load.OpenLoopPump``) over 64 Zipf clients
+    (``ZipfClients(64, prefix="spike")``), from ``start`` to ``stop``
+    seconds after ``t0`` on the wall clock, each submitted as a task of
+    its own to the replicas in turn.  Returns what the front door did
+    with them once every submit has finished: offered, the acked ids,
+    and the sheds."""
+    import random
+
+    from smartbft_tpu_torch.core.pool import (
+        AdmissionRejected,
+        SubmitTimeoutError,
+    )
+    from smartbft_tpu_torch.testing.load import OpenLoopPump, ZipfClients
+
+    rng = random.Random(seed)
+    clients = ZipfClients(64, prefix="spike")
+    out = {"offered": 0, "acked": [], "shed_admission": 0,
+           "shed_timeout": 0, "failed": 0}
+
+    async def submit(app, cid: str, rid: str) -> None:
+        try:
+            await app.submit(cid, rid)
+            out["acked"].append(f"{cid}:{rid}")
+        except AdmissionRejected:
+            out["shed_admission"] += 1
+        except SubmitTimeoutError:
+            out["shed_timeout"] += 1
+        except Exception:  # noqa: BLE001 — counted, as the round counts it
+            out["failed"] += 1
+
+    await asyncio.sleep(max(0.0, t0 + start - time.perf_counter()))
+    pump = OpenLoopPump(rate, rng, start=time.perf_counter())
+    tasks = []
+    while time.perf_counter() - t0 < stop:
+        for _ in range(pump.due(time.perf_counter())):
+            rid = f"spike-{out['offered']}"
+            app = apps[out["offered"] % len(apps)]
+            out["offered"] += 1
+            tasks.append(asyncio.ensure_future(
+                submit(app, clients.sample(rng), rid)))
+        await asyncio.sleep(0.01)
+    await asyncio.gather(*tasks)
+    return out
+
+
+def ledger_ids(app) -> list:
+    """The request ids (``client:request``) in ``app``'s ledger, in
+    order."""
+    return [str(info) for d in app.ledger()
+            for info in app.requests_from_proposal(d.proposal)]
+
+
 async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     """One Byzantine cell: the chaos harness's Byzantine round
     (``testing.chaos.byzantine_round``: n = 4 with one actor, depth 1,
@@ -2461,10 +2566,16 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     ``P256CryptoProvider`` a replica over one shared dedupe coalescer and
     ``engine`` -> ``testing.App`` on the wall clock, as cell A's cluster
     is built.  A ``ByzantineActor`` arms the replica the round arms (the
-    initial leader to equivocate, replica 4 to forge votes).  Requests go
-    in one every 0.3 s through each replica in turn, as the round submits
-    them, until every replica has committed all of them.  The round's oracles run before the cluster stops.  Returns
-    the run's measurements."""
+    initial leader to equivocate or to censor, replica 4 to forge votes).
+    Requests go in one every 0.3 s through each replica in turn, as the
+    round submits them, until every replica has committed all of them.
+    Mode ``censor`` is the round's censor case: rotation off (a static
+    leader), 8 requests, the leader drops every forwarded request of
+    client ``chaos``, and open-loop spike arrivals at 10 a second land
+    across the cluster from 1 s to 6 s (:func:`spike_load`); it waits
+    until every honest replica has committed the 8 requests and every
+    acked spike request.  The round's oracles run before the cluster
+    stops.  Returns the run's measurements."""
     import threading
     import types
 
@@ -2482,7 +2593,8 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     from smartbft_tpu_torch.testing.network import Network
     from smartbft_tpu_torch.utils.clock import Scheduler, WallClockDriver
 
-    n, requests = 4, 18
+    censor = mode == "censor"
+    n, requests = 4, 8 if censor else 18
     ids = list(range(1, n + 1))
     rings = Keyring.generate(ids, seed=b"byzantine-chaos", scheme=p256)
     ring = rings[1]
@@ -2497,7 +2609,7 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     apps = [
         App(i, network, shared, scheduler,
             wal_dir=os.path.join(wal_root, f"{tag}-wal-{i}"),
-            config=chaos_config(i, depth=1, rotation=True,
+            config=chaos_config(i, depth=1, rotation=not censor,
                                 misbehavior_shun_threshold=3,
                                 misbehavior_decay_interval=600.0),
             crypto=P256CryptoProvider(rings[i], engine=engine,
@@ -2506,7 +2618,7 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     ]
     # what the chaos invariants read of a cluster
     cluster = types.SimpleNamespace(depth=1, live_apps=lambda: list(apps))
-    actor_id = 1 if mode == "equivocate" else 4
+    actor_id = 1 if mode in ("equivocate", "censor") else 4
     actor_key = rings[actor_id].public_keys[actor_id]
     # every verify the engine runs, tallied by signer and verdict
     tally = {"items": 0, "accepted": 0, "actor_items": 0,
@@ -2534,9 +2646,15 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
         actor = ByzantineActor(apps[actor_id - 1], network)
         if mode == "equivocate":
             actor.equivocate()
+        elif censor:
+            actor.censor({"chaos"})
         else:
             actor.forge_votes(per_preprepare=3)
+        honest = [a for a in apps if a.id != actor_id]
         t0 = time.perf_counter()
+        spike = asyncio.ensure_future(
+            spike_load(apps, 10.0, 1.0, 6.0, t0) if censor
+            else asyncio.sleep(0, {"offered": 0, "acked": []}))
         leaders = set()
         k = 0
         while k < requests:
@@ -2548,15 +2666,28 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
                 pass
             leaders.update(a.consensus.get_leader_id() for a in apps)
             await asyncio.sleep(0.3)
-        elapsed = (await wait_committed({tag: apps}, requests, t0,
+        spiked = await spike
+        expected = requests + len(spiked["acked"])
+        elapsed = (await wait_committed({tag: honest if censor else apps},
+                                        expected, t0,
                                         f"byzantine {tag}"))[tag]
         leaders.update(a.consensus.get_leader_id() for a in apps)
-        honest = [a for a in apps if a.id != actor_id]
         try:
             Invariants.fork_free(cluster)
-            Invariants.exactly_once(cluster, expected=requests)
+            # the deposed censor may still be catching up: Y3 holds the
+            # honest replicas to every acked request
+            Invariants.exactly_once(
+                types.SimpleNamespace(depth=1, live_apps=lambda: honest)
+                if censor else cluster, expected=expected)
             if mode == "equivocate":
                 Invariants.no_equivocation_commit(cluster, actor)
+            elif censor:
+                want = {f"chaos:chaos-{k}" for k in range(requests)} \
+                    | set(spiked["acked"])
+                for a in honest:
+                    missing = want - set(ledger_ids(a))
+                    assert not missing, (
+                        f"replica {a.id} never committed {sorted(missing)}")
             else:
                 Invariants.forger_shunned_and_shed(cluster, actor)
         except AssertionError as exc:
@@ -2566,6 +2697,8 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
         final_leaders = {a.consensus.get_leader_id() for a in honest}
         views = sorted({a.consensus.controller.curr_view_number
                         for a in apps})
+        honest_views = {str(a.id): a.consensus.controller.curr_view_number
+                        for a in honest}
     finally:
         engine.verify = verify
         for a in apps:
@@ -2580,15 +2713,19 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
     digests = ledger_digests(honest)
     return {
         "mode": mode, "actor": actor.snapshot(), "nodes": n,
-        "requests": requests,
-        "committed_min": min(committed(a) for a in apps),
+        "requests": expected,
+        "spike": {**{k: v for k, v in spiked.items() if k != "acked"},
+                  "acked": len(spiked["acked"])},
+        "committed_min": min(committed(a)
+                             for a in (honest if censor else apps)),
         "decisions": len(honest[0].ledger()),
         "ledger_digests": len(digests),
         "ledger_digest": sorted(digests)[0][:16],
         "elapsed_s": round(elapsed, 3),
-        "tx_per_s": round(requests / elapsed, 1),
+        "tx_per_s": round(expected / elapsed, 1),
         "leaders_seen": sorted(leaders),
         "final_leaders": sorted(final_leaders), "views": views,
+        "honest_views": honest_views,
         "committed_views": committed_views,
         "forged_values_committed": forged_values,
         "engine_tally": dict(tally),
@@ -2605,16 +2742,20 @@ async def run_byzantine(engine, tag: str, mode: str, wal_root: str):
 
 
 def byzantine_cell(engine, tag, mode, wal_root):
-    """Cell Y1 (``mode`` "forge") or Y2 ("equivocate") through
-    :func:`run_byzantine`, whose chaos oracles must hold (fork-free,
-    exactly once, and the mode's own).  Fails unless every honest replica
-    holds one ledger with every request, no committed decision carries a
-    forged signature, the cell passes :func:`read_cell` for the comb
-    kernel, and: in Y1 the forger is shunned at every honest replica and
-    every signature in the kernel's lanes is one the engine was handed
-    and accepted (the forged values never reach a lane); in Y2 every
-    honest ledger goes on in a view after the one the leader lied in
-    (the oracle also holds the liar to the committed blacklist)."""
+    """Cell Y1 (``mode`` "forge"), Y2 ("equivocate") or Y3 ("censor")
+    through :func:`run_byzantine`, whose chaos oracles must hold
+    (fork-free, exactly once, and the mode's own).  Fails unless every
+    honest replica holds one ledger with every request, no committed
+    decision carries a forged signature, the cell passes
+    :func:`read_cell` for the comb kernel (so the breaker never opened),
+    and: in Y1 the forger is shunned at every honest replica and every
+    signature in the kernel's lanes is one the engine was handed and
+    accepted (the forged values never reach a lane); in Y2 every honest
+    ledger goes on in a view after the one the leader lied in (the oracle
+    also holds the liar to the committed blacklist); in Y3 the censor
+    dropped a forwarded request, every honest replica committed every
+    acked request once, and every honest replica is in a view after 0
+    (the censor was deposed)."""
     run = asyncio.run(run_byzantine(engine, tag, mode, wal_root))
     if run["committed_min"] < run["requests"]:
         fail(f"byzantine {tag}: a replica committed {run['committed_min']} "
@@ -2637,6 +2778,14 @@ def byzantine_cell(engine, tag, mode, wal_root):
             fail(f"byzantine {tag}: the kernel's {run['sigs_verified']} "
                  f"signatures are not the {tally['accepted']} accepted of "
                  f"{tally['items']} the engine was handed")
+    elif mode == "censor":
+        if not run["actor"]["censored"]:
+            fail(f"byzantine {tag}: the censor dropped no forwarded "
+                 "request: the attack never engaged")
+        stuck = {i: v for i, v in run["honest_views"].items() if v == 0}
+        if stuck:
+            fail(f"byzantine {tag}: the censor {actor} was not deposed: "
+                 f"honest replicas still in view 0: {stuck}")
     elif run["committed_views"][-1] <= min(
             v for v, _ in run["actor"]["equivocated_slots"]):
         fail(f"byzantine {tag}: nothing committed in a view after the "
@@ -2646,9 +2795,10 @@ def byzantine_cell(engine, tag, mode, wal_root):
 
 
 def phase_byzantine(wal_root, engine=None):
-    """Cells Y1 and Y2 on one fresh CUDA engine (the P-256 comb kernel):
-    the chaos harness's Byzantine round on real P-256 votes, with a vote
-    forger (Y1) and an equivocating leader (Y2)."""
+    """Cells Y1, Y2 and Y3 on one fresh CUDA engine (the P-256 comb
+    kernel): the chaos harness's Byzantine round on real P-256 votes, with
+    a vote forger (Y1), an equivocating leader (Y2) and a censoring
+    static leader under open-loop spike arrivals (Y3)."""
     from smartbft_tpu_torch.crypto import p256
     from smartbft_tpu_torch.crypto.provider import (
         TorchVerifyEngine,
@@ -2660,6 +2810,7 @@ def phase_byzantine(wal_root, engine=None):
     prewarm_verify_engine(engine)
     y1 = byzantine_cell(engine, "y1", "forge", wal_root)
     y2 = byzantine_cell(engine, "y2", "equivocate", wal_root)
+    y3 = byzantine_cell(engine, "y3", "censor", wal_root)
 
     def summary(cell):
         mis = cell["misbehavior"].values()
@@ -2682,6 +2833,11 @@ def phase_byzantine(wal_root, engine=None):
             "tx_per_s": cell["tx_per_s"], "elapsed_s": cell["elapsed_s"],
         }
 
+    def censor_summary(cell):
+        return {**summary(cell), "censored": cell["actor"]["censored"],
+                "requests": cell["requests"], "spike": cell["spike"],
+                "honest_views": cell["honest_views"]}
+
     emit({
         "phase": "byzantine", "ok": True,
         "deployment": {"nodes": 4, "actors": 1, "pipeline_depth": 1,
@@ -2690,10 +2846,14 @@ def phase_byzantine(wal_root, engine=None):
                        "misbehavior_decay_interval_s": 600.0,
                        "shared_dedupe_coalescer": True, "window_s": 0.001,
                        "scheme": "p256"},
+        "y3_deployment": {"leader_rotation": False, "requests": 8,
+                          "censored_client": "chaos",
+                          "spike_per_s": 10.0, "spike_s": [1.0, 6.0]},
         "y1_forge": summary(y1), "y2_equivocate": summary(y2),
-        "y1": y1, "y2": y2,
+        "y3_censor": censor_summary(y3),
+        "y1": y1, "y2": y2, "y3": y3,
     })
-    return {"y1": y1, "y2": y2}
+    return {"y1": y1, "y2": y2, "y3": y3}
 
 
 def raise_fd_limit() -> dict:
@@ -3131,19 +3291,22 @@ def main() -> int:
         import numpy as np
         import torch
     except ImportError as exc:
-        print(f"chip_smoke: {exc}", file=sys.stderr)
-        return 2
+        return early_exit(f"{exc}")
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this smoke needs an "
-              "NVIDIA card", file=sys.stderr)
-        return 2
+        return early_exit("CUDA is not available; this smoke needs an "
+                          "NVIDIA card")
     sys.path.insert(0, HERE)
     try:
-        from smartbft_tpu_torch.crypto.provider import Keyring
+        import smartbft_tpu_torch.crypto.provider  # noqa: F401
     except ImportError as exc:
-        print(f"chip_smoke: the port package is missing ({exc}); run from "
-              "the repository root", file=sys.stderr)
-        return 2
+        return early_exit(f"the port package is missing ({exc}); run from "
+                          "the repository root")
+    return run_phase("smoke", smoke, np, torch)
+
+
+def smoke(np, torch) -> int:
+    """Every phase in turn; the caller reports a failure on stdout."""
+    from smartbft_tpu_torch.crypto.provider import Keyring
 
     smi = nvidia_smi("name,power.limit")
     clock_hz = 1e6 * float(nvidia_smi("clocks.max.sm").split()[0])
@@ -3162,22 +3325,20 @@ def main() -> int:
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = run_phase(name, fn, *args)
         seconds[name] = round(time.perf_counter() - t0, 1)
         return out
 
     ids = list(range(1, 65))
+
+    def ring_keys(scheme):
+        rings = Keyring.generate(ids, seed=b"bench-tput", scheme=scheme)
+        return [(rings[i].private_key, rings[i].public_keys[i]) for i in ids]
+
     try:
         report = timed("build", phase_build)
-        rings = Keyring.generate(ids, seed=b"bench-tput")
-        keys = [(rings[i].private_key, rings[i].public_keys[i]) for i in ids]
-        ed_rings = Keyring.generate(ids, seed=b"bench-tput", scheme=ed25519)
-        ed_keys = [(ed_rings[i].private_key, ed_rings[i].public_keys[i])
-                   for i in ids]
-        bls_rings = Keyring.generate(ids, seed=b"bench-tput",
-                                     scheme=bls12381)
-        bls_keys = [(bls_rings[i].private_key, bls_rings[i].public_keys[i])
-                    for i in ids]
+        keys, ed_keys, bls_keys = timed(
+            "keys", lambda: [ring_keys(s) for s in (p256, ed25519, bls12381)])
         recs = {"comb": timed("comb", phase_comb, rng, keys),
                 "generic": timed("generic", phase_generic, rng),
                 "ed_comb": timed("ed_comb", phase_ed_comb, rng, ed_keys),
@@ -3197,13 +3358,13 @@ def main() -> int:
         rows = timed("kernels", phase_kernels, recs, cells, clock_hz, sms,
                       {**sharded, **plane, **loads, **byz, **socks,
                        **meshes, **embed})
-        busy_line(sharded, rows[0])
-        busy_line(plane, rows[0], "verify_plane_busy")
-        busy_line(loads, rows[0], "open_loop_busy")
-        busy_line(byz, rows[0], "byzantine_busy")
-        busy_line(socks, rows[0], "sockets_busy")
-        busy_line(meshes, rows[0], "mesh_busy")
-        busy_line(embed, rows[0], "embedder_busy")
+        for cells, phase in ((sharded, "sharded_busy"),
+                             (plane, "verify_plane_busy"),
+                             (loads, "open_loop_busy"),
+                             (byz, "byzantine_busy"),
+                             (socks, "sockets_busy"), (meshes, "mesh_busy"),
+                             (embed, "embedder_busy")):
+            run_phase(phase, busy_line, cells, rows[0], phase)
         from smartbft_tpu_torch.crypto import cuda_comb as cc
         from smartbft_tpu_torch.crypto import cuda_ecdsa as ce
         from smartbft_tpu_torch.crypto import cuda_ed25519 as ced

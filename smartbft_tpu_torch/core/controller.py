@@ -453,10 +453,14 @@ class Controller(RequestTimeoutHandler):
 
     def _route_view_message_tail(self, sender: int, m: Message) -> None:
         """Shared tail of pre-prepare/prepare/commit routing: view-change
-        evidence fan-out + artificial leader heartbeat (both intakes)."""
+        evidence fan-out + artificial leader heartbeat (both intakes).  A
+        lower-view message of the leader is no sign of life in this view,
+        so it injects no heartbeat (the monitor would answer it with a
+        HeartBeatResponse)."""
         if self.view_changer is not None:
             self.view_changer.handle_view_message(sender, m)
-        if sender == self.leader_id():
+        if sender == self.leader_id() \
+                and view_number_of_msg(m) >= self.curr_view_number:
             self.leader_monitor.inject_artificial_heartbeat(
                 sender,
                 HeartBeat(view=view_number_of_msg(m), seq=proposal_sequence_of_msg(m)),

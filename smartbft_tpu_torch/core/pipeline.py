@@ -593,7 +593,8 @@ class WindowedView:
     # ------------------------------------------------------------------ routing
 
     def _process_msg(self, sender: int, m: Message) -> None:
-        """view.go:194-261 adapted to a window of sequences."""
+        """view.go:194-261 adapted to a window of sequences; a lower-view
+        message of the leader is dropped, as in :meth:`View._process_msg`."""
         if self._aborted:
             return
         msg_view = view_number_of_msg(m)
@@ -603,9 +604,15 @@ class WindowedView:
             if sender != self.leader_id:
                 self._discover_if_sync_needed(sender, m)
                 return
+            if msg_view < self.number:
+                # the leader's own message of an earlier view: it was sent
+                # before the leader's NewView and overtook it (view-change
+                # traffic and view traffic ride separate queues).  Stale,
+                # harmless to safety, and no sign of a faulty leader, so it
+                # is dropped; the controller's intake counted it stale_view
+                return
             self.failure_detector.complain(self.number, False)
-            if msg_view > self.number:
-                self.synchronizer.sync()
+            self.synchronizer.sync()
             self._stop()
             return
 

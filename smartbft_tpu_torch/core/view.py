@@ -244,6 +244,9 @@ class View:
         )
         self._dropped_msgs = 0  # overflow counter for the bounded inbox
         self._aborted = False
+        #: set by _stop; _decide races the decide rendezvous against it
+        self._abort_event = asyncio.Event()
+        self._abort_wait_task: Optional[asyncio.Task] = None
         # the per-shard accounting plane captured at intake: _drain_inbox
         # runs in the view's OWN task (whose context predates any transport
         # dispatch), so the drain must use the plane the transport installed
@@ -288,6 +291,7 @@ class View:
     def _stop(self) -> None:
         if not self._aborted:
             self._aborted = True
+            self._abort_event.set()
             try:
                 self._inbox.put_nowait(_ABORT)
             except asyncio.QueueFull:
@@ -457,7 +461,9 @@ class View:
     # ------------------------------------------------------------------ routing
 
     def _process_msg(self, sender: int, m: Message) -> None:
-        """view.go:194-261 — route one message into slots/vote-sets."""
+        """view.go:194-261 — route one message into slots/vote-sets.  Unlike
+        the reference, a lower-view message of the leader is dropped, not
+        complained about."""
         if self._aborted:
             return
         msg_view = view_number_of_msg(m)
@@ -467,9 +473,15 @@ class View:
             if sender != self.leader_id:
                 self._discover_if_sync_needed(sender, m)
                 return
+            if msg_view < self.number:
+                # the leader's own message of an earlier view: it was sent
+                # before the leader's NewView and overtook it (view-change
+                # traffic and view traffic ride separate queues).  Stale,
+                # harmless to safety, and no sign of a faulty leader, so it
+                # is dropped; the controller's intake counted it stale_view
+                return
             self.failure_detector.complain(self.number, False)
-            if msg_view > self.number:
-                self.synchronizer.sync()
+            self.synchronizer.sync()
             self._stop()
             return
 
@@ -826,7 +838,30 @@ class View:
             ViewSequence(view_active=True, proposal_seq=self.proposal_sequence)
         )
         signatures = list(signatures) + [self.my_proposal_sig]
-        await self.decider.decide(proposal, signatures, requests)
+        # Race the decide rendezvous against abort, as WindowedView._decide
+        # does: the controller resolves the decision from the same loop that
+        # processes abort events, so a view parked here while an abort is
+        # dequeued ahead of its decision deadlocked controller._abort_view
+        # (await view.abort() -> await task -> parked here forever; the
+        # deposed leader of the chaos censor round hung so).  On abort the
+        # decision stays queued: it is committed, and the controller loop
+        # delivers it once the abort has finished.
+        decide = create_logged_task(
+            self.decider.decide(proposal, signatures, requests),
+            name=f"view-decide-{self.self_id}-{self.proposal_sequence - 1}",
+            logger=self.logger,
+        )
+        if self._abort_wait_task is None or self._abort_wait_task.done():
+            self._abort_wait_task = create_logged_task(
+                self._abort_event.wait(),
+                name=f"view-abortwait-{self.self_id}", logger=self.logger,
+            )
+        await asyncio.wait(
+            {decide, self._abort_wait_task}, return_when=asyncio.FIRST_COMPLETED
+        )
+        if not decide.done():
+            raise ViewAborted()
+        decide.result()
 
     def _start_next_seq(self) -> None:
         """Pipeline swap: next-* become current (view.go:860-894)."""

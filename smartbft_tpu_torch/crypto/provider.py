@@ -643,7 +643,7 @@ class AsyncBatchCoalescer:
                  dedupe: bool = False,
                  policy: Optional[VerifyFaultPolicy] = None,
                  fallback_engine=None, metrics=None,
-                 hold: Optional[float] = None):
+                 hold: Optional[float] = None, sleep=None):
         """``dedupe``: verify each DISTINCT item once per flush and fan the
         verdict out to every submitter.  Verification is a pure function of
         (message, signature, key), so this is sound; it pays off when many
@@ -677,8 +677,15 @@ class AsyncBatchCoalescer:
         overhead).  The hold never engages when the breaker is open (host
         fallback must not wait), never past ``max_batch``, and flushes the
         moment the wave lands exactly on a rung (zero pad waste beats more
-        depth).  None/0 keeps the eager-window contract."""
+        depth).  None/0 keeps the eager-window contract.
+
+        ``sleep``: the coroutine function the coalescing window waits
+        with: ``asyncio.sleep`` (the wall clock) by default; a logical
+        scheduler's :meth:`~smartbft_tpu_torch.utils.clock.Scheduler.sleep`
+        puts the window on the logical clock, so a test counts waves
+        independently of the host's speed."""
         self.engine = engine
+        self._sleep = asyncio.sleep if sleep is None else sleep
         self.window = window
         self.max_batch = max_batch
         self.dedupe = dedupe
@@ -998,7 +1005,7 @@ class AsyncBatchCoalescer:
 
     async def _flush_after(self, delay: float) -> None:
         if delay:
-            await asyncio.sleep(delay)
+            await self._sleep(delay)
         await self._maybe_hold()
         # swap under the lock, verify outside it — submissions arriving
         # during the kernel launch accumulate into the NEXT batch

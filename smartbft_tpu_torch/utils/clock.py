@@ -92,6 +92,13 @@ class Scheduler:
     def advance_by(self, dt: float) -> int:
         return self.advance_to(self._now + dt)
 
+    async def sleep(self, delay: float) -> None:
+        """``asyncio.sleep`` on this clock: returns once an advance has
+        reached ``delay`` seconds from now."""
+        fut = asyncio.get_running_loop().create_future()
+        self.schedule(delay, lambda: fut.done() or fut.set_result(None))
+        await fut
+
     def pending(self) -> int:
         return sum(1 for t in self._heap if not t.cancelled)
 

@@ -8,6 +8,11 @@ exact count guard.  The sync-poisoning round runs its rejoining replica
 as a socket replica of the port's ``net.launch``; every case runs under a
 time limit of its own.
 
+The censor round has a limit of its own, far below the others': it
+drains in seconds since the port drops a lower-view message of the leader
+(``tests/test_torch_stale_view.py``), so a stall shows as a failure, not
+as a slow pass.
+
 Left out: the latency probe the reference marks slow."""
 
 from torch_reference import case_time_limit, check_matrices, reference_tests
@@ -15,8 +20,12 @@ from torch_reference import case_time_limit, check_matrices, reference_tests
 CASES = {"test_byzantine_actors.py": 14}
 LEFT_OUT = {"test_byzantine_actors.py": [
     "test_byzantine_latency_probe_pair_and_row"]}
+#: the censor round's own limit, in seconds
+CENSOR = "test_byzantine_actors__test_censoring_leader_detected_under_" \
+    "open_loop_load"
+CENSOR_LIMIT = 20
 
-time_limit = case_time_limit(60)
+time_limit = case_time_limit(60, {CENSOR: CENSOR_LIMIT})
 
 for _file in CASES:
     globals().update(reference_tests(_file))
@@ -76,3 +85,9 @@ def test_a_members_malformed_vote_is_an_invalid_signature():
     assert auxes == [b"a2", None, None]
     assert by == {3: {"unknown_signer": 2, "invalid_sig": 1},
                   9: {"unknown_signer": 1}}
+
+
+def test_the_censor_limit_names_a_collected_case():
+    """The own limit reaches the censor round only while the name is the
+    round's item name."""
+    assert callable(globals()[CENSOR])

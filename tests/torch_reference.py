@@ -309,24 +309,27 @@ def check_matrices(cases: dict, left_out: dict, leave_out: dict = None):
             assert not jax_globals(fn), fn.__name__
 
 
-def case_time_limit(seconds: int = 60):
+def case_time_limit(seconds: int = 60, cases: dict = None):
     """An autouse fixture that fails a case still running after
     ``seconds`` (``SIGALRM``; the suite runs without pytest-timeout), so
     a case that hangs, as a socket close did, fails on its own instead
-    of holding its worker until the run is cut.  Bind it to a name in a
-    test file's globals to arm it for every case of that file."""
+    of holding its worker until the run is cut.  ``cases`` gives the
+    cases named in it (``{item name: seconds}``) limits of their own.
+    Bind it to a name in a test file's globals to arm it for every case
+    of that file."""
 
     @pytest.fixture(autouse=True)
     def _case_time_limit(request):
         if threading.current_thread() is not threading.main_thread():
             raise RuntimeError("the case time limit needs the main thread")
+        limit = (cases or {}).get(request.node.originalname, seconds)
 
         def expire(signum, frame):
             pytest.fail(f"{request.node.nodeid} still running after "
-                        f"{seconds} s", pytrace=False)
+                        f"{limit} s", pytrace=False)
 
         old = signal.signal(signal.SIGALRM, expire)
-        signal.alarm(seconds)
+        signal.alarm(limit)
         try:
             yield
         finally:
